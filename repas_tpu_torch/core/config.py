@@ -1,0 +1,100 @@
+"""Dataclass config tree for the frame pipeline.
+
+Port of ``repas_tpu/core/config.py`` (``DetectorConfig``, ``PnPConfig``,
+``DepthConfig``, ``CadConfig``, ``PipelineConfig``): the same fields and
+defaults, limited to the sub-configs the frame pipeline reads.
+``from_reference`` builds this tree from ``dataclasses.asdict`` of a
+``repas_tpu`` config, so both packages can run the same knobs.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    """AprilTag detector knobs (fixed-capacity, masked-slot formulation)."""
+
+    family: str = "tag36h11"
+    quad_decimate: float = 2.0
+    quad_sigma: float = 0.0
+    refine_edges: bool = True
+    decode_sharpening: float = 0.25
+    max_hamming: int = 2
+    min_decision_margin: float = 10.0
+    max_components: int = 48            # candidate dark regions per frame
+    max_detections: int = 8             # decoded tags returned per frame
+    min_area_px: float = 64.0
+    max_area_frac: float = 0.45
+    tile: int = 4                       # adaptive-threshold tile
+    min_contrast: float = 10.0
+    ccl_iters: int = 5                  # scan+stencil propagation rounds
+
+
+@dataclass(frozen=True)
+class PnPConfig:
+    """PnP / pose solve."""
+
+    tag_size_m: float = 0.0303
+    method: str = "ippe_square"
+    refine_iters: int = 8
+    z_penalty: float = 1000.0
+    try_all_orders: bool = True
+
+
+@dataclass(frozen=True)
+class DepthConfig:
+    """Depth stream handling."""
+
+    depth_scale: float = 0.001          # u16 -> meters
+    center_win: int = 5                 # median window
+    fallback_win: int = 11
+    min_depth_m: float = 0.25
+    max_depth_m: float = 8.0
+
+
+@dataclass(frozen=True)
+class CadConfig:
+    """CAD placement."""
+
+    units_to_meters: float = 0.001
+    pre_rot_deg_zyx: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    center_on_origin: bool = False
+    origin_offset_local: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    flip_z_tag_ids: Tuple[int, ...] = (9,)  # tag-9 180deg Z-flip fix
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level config tree of the frame pipeline."""
+
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
+    pnp: PnPConfig = field(default_factory=PnPConfig)
+    depth: DepthConfig = field(default_factory=DepthConfig)
+    cad: CadConfig = field(default_factory=CadConfig)
+    tag_ids: Tuple[int, ...] = (9, 16)
+    anchor_id: int = 16
+
+
+def _build(cls, d: dict):
+    kw = {}
+    for f in fields(cls):
+        v = d[f.name]
+        kw[f.name] = tuple(v) if isinstance(v, (list, tuple)) else v
+    return cls(**kw)
+
+
+def from_reference(cfg_dict: dict) -> PipelineConfig:
+    """PipelineConfig from ``dataclasses.asdict`` of a repas_tpu
+    ``PipelineConfig``. Sub-configs the frame pipeline does not read
+    (icp, ransac, canopy, ...) are ignored; a missing field raises
+    KeyError."""
+    return PipelineConfig(
+        detector=_build(DetectorConfig, cfg_dict["detector"]),
+        pnp=_build(PnPConfig, cfg_dict["pnp"]),
+        depth=_build(DepthConfig, cfg_dict["depth"]),
+        cad=_build(CadConfig, cfg_dict["cad"]),
+        tag_ids=tuple(cfg_dict["tag_ids"]),
+        anchor_id=cfg_dict["anchor_id"],
+    )

@@ -1,0 +1,132 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+``csrc/*.cu`` are compiled by one ``nvcc`` call for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The
+build runs at first use, into ``build/kernels/<hash>/`` beside the
+package (listed in ``.gitignore``), keyed by a hash of the sources and
+flags, so a changed source rebuilds and a repeated run reuses the
+library. Only a CUDA launch reaches this module: the CPU paths never
+import nvcc or the library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+LIB_NAME = "librepas_kernels.so"
+
+# Wrapper calls that launched their kernel, by kernel. A wrapper adds one
+# where it launches, and nowhere else; callers may reset the counts.
+launches = {"ccl": 0, "patch_extract": 0, "pointcloud": 0}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""          # nvcc's output (ptxas -v resource use) of a build
+build_seconds = None    # wall time of this process's build, None if reused
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # mask, out, scratch, B, H, W, iters, device, stream
+    "repas_ccl": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pyr, origins, out, B, C, Hp, W, ah, aw, device, stream
+    "repas_patch_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # depth, rgb, K, scale, out, B, H, W, device, stream
+    "repas_pointcloud": [_P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit on PATH or under CUDA_HOME")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed build directory unless a library
+    for these sources is already there. Returns the library's path."""
+    global build_log, build_seconds
+    out_dir = BUILD_ROOT / source_digest()
+    so = out_dir / LIB_NAME
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # compile to a private name and rename: concurrent builds (test
+    # workers) never load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repas_error_string.argtypes = [ctypes.c_int]
+            lib.repas_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point `name` on `device`'s current stream; raise if
+    the launch reported an error (cudaGetLastError after each launch)."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name)(*args, device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
+                           f"{lib.repas_error_string(rc).decode()}")

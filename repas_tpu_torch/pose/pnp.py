@@ -1,0 +1,241 @@
+"""IPPE-square PnP with a Levenberg-Marquardt polish.
+
+Port of ``repas_tpu/pose/pnp.py`` (``square_object_points``,
+``_svd2x2_signed``, ``_rotation_e3_to``, ``_ippe_from_homography``,
+``solve_pnp_ippe_square``, ``_chol_solve6``, ``_residuals``,
+``refine_pnp_gn``) for an undistorted camera. Every function broadcasts
+over leading dimensions: the frame pipeline solves (B, D, 2 branches)
+problems in one pass. The LM Jacobian is forward mode
+(``torch.autograd.forward_ad`` with the six basis tangents batched), as
+the reference takes it from ``jax.linearize``.
+
+IPPE: with object plane z=0 and the normalized-coords homography H, the
+plane origin projects to v = (H13,H23)/H33 and the map's Jacobian there
+is J = (1/t_z) P R[:,:2]; writing R = R_v Q with R_v e3 = [v;1]/s gives
+B^{-1} J = (1/t_z) Q[:2,:2], whose singular values (1, |q33|) yield t_z
+and the two planar-ambiguity completions of Q.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.autograd.forward_ad as fwAD
+
+from repas_tpu_torch.core.consts import const
+from repas_tpu_torch.core.transforms import (homography_from_unit_square,
+                                             rodrigues, rodrigues_inv, skew)
+from repas_tpu_torch.kernels.project import project_points
+
+_EPS = 1e-12
+
+
+def square_object_points(tag_size_m: float, device) -> torch.Tensor:
+    """Canonical TL,TR,BR,BL square corners (4,3) f32 in the tag plane z=0
+    (half-size = float32(tag_size_m) / 2, as the reference rounds it)."""
+    h = float(np.float32(tag_size_m)) / 2.0
+    return const(((-h, -h, 0.0), (h, -h, 0.0), (h, h, 0.0), (-h, h, 0.0)),
+                 torch.float32, device)
+
+
+def _rot2(angle: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def _svd2x2_signed(A: torch.Tensor):
+    """Proper 2x2 SVD A = U diag(s1, s2) V^T with U,V rotations;
+    s1 >= |s2|, sign(s2) = sign(det A). A (...,2,2)."""
+    E = (A[..., 0, 0] + A[..., 1, 1]) / 2.0
+    F = (A[..., 0, 0] - A[..., 1, 1]) / 2.0
+    G = (A[..., 1, 0] + A[..., 0, 1]) / 2.0
+    H = (A[..., 1, 0] - A[..., 0, 1]) / 2.0
+    Q = torch.sqrt(E * E + H * H)
+    Rm = torch.sqrt(F * F + G * G)
+    a1 = torch.atan2(G, F)    # = phi + theta
+    a2 = torch.atan2(H, E)    # = phi - theta
+    theta = (a1 - a2) / 2.0   # V angle
+    phi = (a1 + a2) / 2.0     # U angle
+    return _rot2(phi), torch.stack([Q + Rm, Q - Rm], dim=-1), _rot2(theta)
+
+
+def _rotation_e3_to(t_hat: torch.Tensor) -> torch.Tensor:
+    """Rotation (...,3,3) taking e3 to the unit vectors t_hat (...,3)."""
+    c = t_hat[..., 2]
+    axis = torch.stack([-t_hat[..., 1], t_hat[..., 0], torch.zeros_like(c)],
+                       dim=-1)
+    s = torch.linalg.vector_norm(axis, dim=-1)
+    k = axis / torch.clamp(s, min=_EPS)[..., None]
+    K = skew(k)
+    eye = torch.eye(3, dtype=t_hat.dtype, device=t_hat.device)
+    # K is skew of the UNIT axis; s = sin(angle), c = cos(angle)
+    R = eye + s[..., None, None] * K + (1.0 - c)[..., None, None] * (K @ K)
+    return torch.where((s < 1e-8)[..., None, None], eye, R)
+
+
+def _ippe_from_homography(Hn: torch.Tensor):
+    """Both IPPE pose solutions from normalized-coords homographies
+    (...,3,3) of the unit half-size square: (R (...,2,3,3), t (...,2,3))."""
+    h22 = Hn[..., 2, 2]
+    v = torch.stack([Hn[..., 0, 2], Hn[..., 1, 2]], dim=-1) / h22[..., None]
+    J = (Hn[..., :2, :2] - v[..., :, None] * Hn[..., 2, None, :2]) \
+        / h22[..., None, None]
+    s = torch.sqrt(1.0 + torch.sum(v * v, dim=-1))
+    one = torch.ones_like(v[..., :1])
+    t_hat = torch.cat([v, one], dim=-1) / s[..., None]
+    Rv = _rotation_e3_to(t_hat)
+    B = Rv[..., :2, :2] - v[..., :, None] * Rv[..., 2, None, :2]
+    detB = B[..., 0, 0] * B[..., 1, 1] - B[..., 0, 1] * B[..., 1, 0]
+    detB = torch.where(torch.abs(detB) < _EPS, _EPS, detB)
+    Binv = torch.stack([
+        torch.stack([B[..., 1, 1], -B[..., 0, 1]], dim=-1),
+        torch.stack([-B[..., 1, 0], B[..., 0, 0]], dim=-1)],
+        dim=-2) / detB[..., None, None]
+    A = Binv @ J
+    U, sig, V = _svd2x2_signed(A)
+    tz = 1.0 / torch.clamp(sig[..., 0], min=_EPS)
+    cb = torch.clamp(sig[..., 1] * tz, -1.0, 1.0)     # q33 = cos(beta)
+    sb = torch.sqrt(torch.clamp(1.0 - cb * cb, min=0.0))
+    zero, ones = torch.zeros_like(cb), torch.ones_like(cb)
+    Uf = torch.zeros(*U.shape[:-2], 3, 3, dtype=A.dtype, device=A.device)
+    Uf[..., :2, :2] = U
+    Uf[..., 2, 2] = 1.0
+    Vf = torch.zeros_like(Uf)
+    Vf[..., :2, :2] = V
+    Vf[..., 2, 2] = 1.0
+    t = tz[..., None] * torch.cat([v, one], dim=-1)
+    Rs = []
+    for sgn in (1.0, -1.0):
+        Rx = torch.stack([
+            torch.stack([ones, zero, zero], dim=-1),
+            torch.stack([zero, cb, -sgn * sb], dim=-1),
+            torch.stack([zero, sgn * sb, cb], dim=-1)], dim=-2)
+        Rs.append(Rv @ (Uf @ Rx @ Vf.transpose(-1, -2)))
+    return torch.stack(Rs, dim=-3), torch.stack([t, t], dim=-2)
+
+
+def solve_pnp_ippe_square(img_corners: torch.Tensor, K: torch.Tensor,
+                          tag_size_m: float, refine_iters: int = 8):
+    """IPPE_SQUARE: pixel corners (...,4,2) in TL,TR,BR,BL object order
+    -> (R (...,3,3), t (...,3), reproj_err_px (...)).
+
+    Both analytic solutions are LM-polished and the lower-reprojection
+    one (with t_z > 0) wins."""
+    K = K.to(img_corners.dtype)
+    obj = square_object_points(tag_size_m, img_corners.device).to(
+        img_corners.dtype)
+    norm_xy = torch.stack(
+        [(img_corners[..., 0] - K[0, 2]) / K[0, 0],
+         (img_corners[..., 1] - K[1, 2]) / K[1, 1]], dim=-1)
+    Hn = homography_from_unit_square(norm_xy)
+    Rs, ts = _ippe_from_homography(Hn)
+    ts = ts * (tag_size_m / 2.0)
+    # polish BOTH analytic branches and pick by refined reprojection
+    # error: under corner noise their pre-refine errors overlap
+    img2 = img_corners[..., None, :, :].expand(*Rs.shape[:-2], 4, 2)
+    rvs, ts2, errs = refine_pnp_gn(obj, img2, rodrigues_inv(Rs), ts, K,
+                                   iters=refine_iters)
+    scores = errs + torch.where(ts2[..., 2] <= 0, 1e6, 0.0)
+    best = torch.argmin(scores, dim=-1)[..., None]
+    rv = torch.take_along_dim(rvs, best[..., None], dim=-2)[..., 0, :]
+    t = torch.take_along_dim(ts2, best[..., None], dim=-2)[..., 0, :]
+    err = torch.take_along_dim(errs, best, dim=-1)[..., 0]
+    return rodrigues(rv), t, err
+
+
+def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD systems A x = b (A (...,6,6), b (...,6)) by fully
+    unrolled pivot-free Cholesky, in the reference's operation order. A
+    zero matrix yields a huge but finite step that the LM accept test
+    rejects."""
+    L = [[None] * 6 for _ in range(6)]
+    for i in range(6):
+        for k in range(i + 1):
+            s = A[..., i, k]
+            for m in range(k):
+                s = s - L[i][m] * L[k][m]
+            if i == k:
+                L[i][k] = torch.sqrt(torch.clamp(s, min=1e-20))
+            else:
+                L[i][k] = s / L[k][k]
+    y = []
+    for i in range(6):
+        s = b[..., i]
+        for m in range(i):
+            s = s - L[i][m] * y[m]
+        y.append(s / L[i][i])
+    x = [None] * 6
+    for i in reversed(range(6)):
+        s = y[i]
+        for m in range(i + 1, 6):
+            s = s - L[m][i] * x[m]
+        x[i] = s / L[i][i]
+    return torch.stack(x, dim=-1)
+
+
+def _residuals(params, obj, img, K, w):
+    """Weighted reprojection residuals (...,2N) of params (...,6)
+    [rvec, t] for object points (N,3) and pixels (...,N,2)."""
+    proj = project_points(obj, params[..., :3], params[..., 3:], K)
+    return ((proj - img) * w[:, None]).flatten(-2)
+
+
+def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
+    """Forward-mode Jacobian (...,M,6) of fn (...,6) -> (...,M) at p: the
+    six basis tangents ride in one extra leading batch dimension, so all
+    problems and all directions go through fn once."""
+    tangents = torch.eye(6, dtype=p.dtype, device=p.device).reshape(
+        6, *([1] * (p.ndim - 1)), 6).expand(6, *p.shape).contiguous()
+    with fwAD.dual_level():
+        dual = fwAD.make_dual(p.expand(6, *p.shape).contiguous(), tangents)
+        J = fwAD.unpack_dual(fn(dual)).tangent           # (6,...,M)
+    return torch.movedim(J, 0, -1)
+
+
+def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
+                  rvec0: torch.Tensor, tvec0: torch.Tensor, K: torch.Tensor,
+                  iters: int = 10, damping: float = 1e-6, weights=None):
+    """Adaptive Levenberg-Marquardt on reprojection error over (rvec, t).
+
+    obj_pts (N,3) shared; img_pts (...,N,2), rvec0/tvec0 (...,3).
+    `weights` (N,) scales per-point residuals (0 masks a point out).
+    Returns (rvec (...,3), tvec (...,3), mean_reproj_err_px (...)).
+    Lambda shrinks on an accepted step and grows on a rejected one; a
+    fixed iteration count, no early exit.
+    """
+    dt = img_pts.dtype
+    K = K.to(dt)
+    n = obj_pts.shape[0]
+    w = (torch.ones(n, dtype=dt, device=img_pts.device) if weights is None
+         else torch.as_tensor(weights, dtype=dt, device=img_pts.device))
+    p = torch.cat([rvec0.to(dt), tvec0.to(dt)], dim=-1)
+
+    def res_fn(pp):
+        return _residuals(pp, obj_pts, img_pts, K, w)
+
+    eye6 = torch.eye(6, dtype=dt, device=p.device)
+    r = res_fn(p)
+    cost = torch.sum(r * r, dim=-1)
+    lam = torch.full(p.shape[:-1], damping, dtype=dt, device=p.device)
+    for _ in range(iters):
+        Jm = _jacobian(res_fn, p)
+        JT = Jm.transpose(-1, -2)
+        JTJ = JT @ Jm
+        JTr = (JT @ r[..., None])[..., 0]
+        mu = lam * torch.diagonal(JTJ, dim1=-2, dim2=-1).sum(-1) / 6.0
+        step = _chol_solve6(JTJ + mu[..., None, None] * eye6, JTr)
+        p_new = p - step
+        r_new = res_fn(p_new)
+        cost_new = torch.sum(r_new * r_new, dim=-1)
+        better = cost_new < cost
+        p = torch.where(better[..., None], p_new, p)
+        r = torch.where(better[..., None], r_new, r)
+        cost = torch.where(better, cost_new, cost)
+        lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-9),
+                          torch.clamp(torch.clamp(lam * 8.0, min=1e-4),
+                                      max=1e6))
+    proj = project_points(obj_pts, p[..., :3], p[..., 3:], K)
+    per_pt = torch.linalg.vector_norm(proj - img_pts, dim=-1)
+    wpos = (w > 0).to(dt)
+    err = torch.sum(per_pt * wpos, dim=-1) / torch.clamp(wpos.sum(), min=1)
+    return p[..., :3], p[..., 3:], err

@@ -1,0 +1,179 @@
+"""End-to-end: the port's process_frames against the JAX package's on a
+batch of two 360x640 RGB-D frames holding tags 9 and 16, slot by slot.
+
+Tolerances:
+  * ids, valid, areas, anchor_idx, P_depth_valid, order_idx: exact;
+    hamming exact in valid slots (dead slots: see test_torch_detector);
+  * corners and centers (valid slots) <= 0.05 px; margin <= 0.25 gray;
+  * R and R_avg <= 0.25 deg; t, anchor_t <= 0.1 mm; P_depth,
+    anchor_P_depth <= 0.1 mm; err_px <= 2e-3 px; weights <= 2 %;
+  * point cloud: rtol 1e-6 (Pallas formula vs the XLA fallback).
+The bench frame at 720p (the main path's shape; the one larger case)
+meets the tighter gates: corners and margins <= 1e-2, R <= 0.01 deg.
+The XLA CPU backend fuses multiply-adds and eager torch does not, so edge
+sample positions differ by an ulp; on bf16-quantized patches the
+gradient peaks of the edge refiner often tie, and an ulp can move one
+sample's peak by a whole offset step. Measured here: corners 0.0006 px,
+margin 0.057 gray, R 0.040 deg, t 0.0045 mm; with tag 9 mounted
+upright instead, corners 0.019 px, margin 0.092 gray and R 0.105 deg on
+a 32 px tag (ROADMAP section C).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repas_tpu.core.config import PipelineConfig as RefConfig  # noqa: E402
+from repas_tpu.pipeline import process_frames as ref_frames  # noqa: E402
+from repas_tpu_torch.core.config import from_reference  # noqa: E402
+from repas_tpu_torch.detect.render import (example_frame,  # noqa: E402
+                                           render_tag_in_scene)
+from repas_tpu_torch.pipeline import process_frame, process_frames  # noqa
+
+H, W = 360, 640
+F = 0.6 * W
+K = np.array([[F, 0, W / 2], [0, F, H / 2], [0, 0, 1.0]], np.float32)
+RZ180 = np.diag([-1.0, -1.0, 1.0])   # tag 9 mounted upside down: the
+                                     # pipeline's flip fix undoes it
+
+
+def _tilt(deg):
+    a = np.radians(deg)
+    return np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                     [0, np.sin(a), np.cos(a)]])
+
+
+def _frames():
+    def scene(tags, seed):
+        img = np.full((H, W), 180.0, np.float32)
+        for tid, R, t, size in tags:
+            g = render_tag_in_scene(tid, R, np.asarray(t), K, size, (H, W))
+            img = np.where(np.abs(g - 180.0) > 1e-3, g, img)
+        rng = np.random.default_rng(seed)
+        img = np.clip(img + rng.normal(0, 2.0, img.shape), 0, 255)
+        return np.repeat(img[..., None], 3, axis=-1).astype(np.uint8)
+
+    rgbs = np.stack([
+        scene([(9, _tilt(10) @ RZ180, (-0.09, 0.0, 0.5), 0.05),
+               (16, _tilt(10), (0.09, 0.01, 0.5), 0.05)], 0),
+        scene([(16, _tilt(-20), (0.0, 0.02, 0.45), 0.06)], 1)])
+    rng = np.random.default_rng(2)
+    depths = np.stack([
+        np.full((H, W), 500, np.uint16),
+        (430 + rng.integers(0, 40, (H, W))).astype(np.uint16)])
+    depths[1, :, :40] = 0                      # a hole band
+    return rgbs, depths
+
+
+def _angle_deg(Ra, Rb):
+    Rr = np.swapaxes(Ra, -1, -2) @ Rb
+    c = np.clip((np.trace(Rr, axis1=-2, axis2=-1) - 1) / 2, -1, 1)
+    return np.degrees(np.arccos(c))
+
+
+@pytest.fixture(scope="module")
+def results():
+    rgbs, depths = _frames()
+    cfg = RefConfig()
+    ref = ref_frames(jnp.asarray(rgbs), jnp.asarray(depths), K, cfg)
+    got = process_frames(torch.from_numpy(rgbs), torch.from_numpy(depths),
+                         torch.from_numpy(K),
+                         from_reference(dataclasses.asdict(cfg)))
+    return rgbs, depths, ref, got
+
+
+def test_detections_slot_by_slot(results):
+    _, _, ref, got = results
+    d, r = got.detections, ref.detections
+    for name in ("ids", "valid", "areas"):
+        np.testing.assert_array_equal(getattr(d, name).numpy(),
+                                      np.asarray(getattr(r, name)),
+                                      err_msg=name)
+    v = d.valid.numpy()
+    assert sorted(d.ids.numpy()[0][v[0]].tolist()) == [9, 16]
+    assert d.ids.numpy()[1][v[1]].tolist() == [16]
+    np.testing.assert_array_equal(d.hamming.numpy()[v],
+                                  np.asarray(r.hamming)[v])
+    for name in ("corners", "centers"):
+        diff = np.abs(getattr(d, name).numpy() - np.asarray(getattr(r, name)))
+        assert diff[v].max() <= 0.05, name
+    np.testing.assert_allclose(d.decision_margin.numpy(),
+                               np.asarray(r.decision_margin), atol=0.25)
+
+
+def test_pose_slot_by_slot(results):
+    _, _, ref, got = results
+    p, r = got.pose, ref.pose
+    for name in ("anchor_idx", "P_depth_valid", "order_idx"):
+        np.testing.assert_array_equal(getattr(p, name).numpy(),
+                                      np.asarray(getattr(r, name)),
+                                      err_msg=name)
+    assert _angle_deg(np.asarray(r.R), p.R.numpy()).max() <= 0.25
+    assert _angle_deg(np.asarray(r.R_avg), p.R_avg.numpy()).max() <= 0.25
+    for name in ("t", "anchor_t", "P_depth", "anchor_P_depth"):
+        np.testing.assert_allclose(getattr(p, name).numpy(),
+                                   np.asarray(getattr(r, name)), atol=1e-4,
+                                   err_msg=name)
+    np.testing.assert_allclose(p.err_px.numpy(), np.asarray(r.err_px),
+                               atol=2e-3)
+    np.testing.assert_allclose(p.weights.numpy(), np.asarray(r.weights),
+                               rtol=0.02)
+
+
+def test_pointcloud(results):
+    _, _, ref, got = results
+    pc, pr = got.pointcloud.numpy(), np.asarray(ref.pointcloud)
+    assert pc.shape == pr.shape == (2, 6, H * W)
+    np.testing.assert_allclose(pc, pr, rtol=1e-6, atol=1e-9)
+
+
+def test_process_frame_is_batch_of_one(results):
+    rgbs, depths, _, got = results
+    one = process_frame(torch.from_numpy(rgbs[1]), torch.from_numpy(depths[1]),
+                        K)
+    for a, b in zip(one.detections, got.detections):
+        np.testing.assert_array_equal(a.numpy(), b[1].numpy())
+    for a, b in zip(one.pose, got.pose):
+        np.testing.assert_array_equal(a.numpy(), b[1].numpy())
+    np.testing.assert_array_equal(one.pointcloud.numpy(),
+                                  got.pointcloud[1].numpy())
+
+
+def test_bench_frame_720p_matches_reference():
+    """The 720p bench frame (tag 9 at 0.45 m, per-frame noise): 4 pyramid
+    levels and the aligned windows at full width, against the reference
+    at the tight gates."""
+    rgb, depth, K720 = example_frame(720, 1280)
+    rng = np.random.default_rng(0)
+    rgbs = np.clip(rgb[None].astype(np.int16)
+                   + rng.integers(-8, 8, (1,) + rgb.shape), 0, 255
+                   ).astype(np.uint8)
+    depths = depth[None]
+    ref = ref_frames(jnp.asarray(rgbs), jnp.asarray(depths), K720,
+                     RefConfig())
+    got = process_frames(torch.from_numpy(rgbs), torch.from_numpy(depths),
+                         torch.from_numpy(K720))
+    d, r = got.detections, ref.detections
+    for name in ("ids", "valid", "areas"):
+        np.testing.assert_array_equal(getattr(d, name).numpy(),
+                                      np.asarray(getattr(r, name)))
+    v = d.valid.numpy()
+    assert d.ids.numpy()[v].tolist() == [9]
+    assert np.abs(d.corners.numpy() - np.asarray(r.corners))[v].max() <= 1e-2
+    assert np.abs(d.decision_margin.numpy()
+                  - np.asarray(r.decision_margin))[v].max() <= 1e-2
+    assert _angle_deg(np.asarray(ref.pose.R), got.pose.R.numpy())[v].max() \
+        <= 0.01
+    for name in ("t", "P_depth"):
+        np.testing.assert_allclose(getattr(got.pose, name).numpy()[v],
+                                   np.asarray(getattr(ref.pose, name))[v],
+                                   atol=1e-4)
+    np.testing.assert_allclose(got.pose.anchor_P_depth.numpy(),
+                               np.asarray(ref.pose.anchor_P_depth), atol=1e-4)
+    np.testing.assert_allclose(got.pointcloud.numpy(),
+                               np.asarray(ref.pointcloud), rtol=1e-6,
+                               atol=1e-9)
