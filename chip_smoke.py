@@ -15,7 +15,18 @@
    calls turned into errors (the step must not wait for the device),
    reads the counts, checks the results (tag 9 in every frame, depth-corrected z within 5 mm of
    0.45 m, one frame equal to the port's CPU result) and times it;
-5. prints one JSON line of kernel results, then, last, one JSON line
+5. the robust phase: the staged detection ladder
+   (repas_tpu_torch.detect.robust.detect_tags_robust_staged) and
+   best-order PnP on the best slot of each of 8 synthetic 720p frames
+   (4 easy, 2 that only the stage-B ROI re-detection decodes, 1
+   gamma-darkened, 1 without a tag, which forces stage C and kernel B4).
+   Holds B4 exactly against its plain version on the ladder's first B4
+   input, resets the counts, runs the ladder with synchronizing calls
+   recorded as warnings (no more than one per wave test), reads the
+   counts (B1, B2 and B4 launched), checks ids, poses and two frames
+   against the port's CPU run, times it, and runs detect_tags_robust on
+   one frame (B4 launched there too);
+6. prints one JSON line of kernel results, then, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -27,6 +38,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -36,6 +48,14 @@ H, W = 720, 1280
 TAG_ID = 9
 TAG_Z = 0.45
 STEPS = 10
+
+# robust phase: the bench's capture batch and intrinsics (bench.py)
+ROBUST_BATCH = 8
+ROBUST_K = np.array([[912.35, 0, 628.78], [0, 911.78, 348.98], [0, 0, 1.0]],
+                    np.float32)
+ROBUST_IDS = [9, 16, 9, 16, 9, 16, 16, None]     # best-slot id per frame
+ROBUST_FOUND_A = [True] * 4 + [False] * 2 + [True, False]
+ROBUST_STEPS = 5
 
 
 def log(obj) -> None:
@@ -54,6 +74,47 @@ def bench_frames(batch: int):
                    + rng.integers(-8, 8, rgbs.shape), 0, 255).astype(np.uint8)
     depths = np.stack([depth] * batch)
     return rgbs, depths, K
+
+
+def _rot(ax, ay, az):
+    ax, ay, az = np.radians([ax, ay, az])
+    rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
+                   [0, np.sin(ax), np.cos(ax)]])
+    ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
+                   [-np.sin(ay), 0, np.cos(ay)]])
+    rz = np.array([[np.cos(az), -np.sin(az), 0],
+                   [np.sin(az), np.cos(az), 0], [0, 0, 1]])
+    return rz @ ry @ rx
+
+
+def robust_frames(seed: int = 0):
+    """8 synthetic 1280x720 RGB frames, per-frame integer noise in
+    [-8, 8) from `seed`: tags 9/16 of 61-87 px at assorted poses (0-3),
+    38 px tags tilted 65 degrees that the decimated stage A cannot decode
+    but the stage-B ROI pass does (4, 5), a gamma-darkened frame (f**3,
+    6) and a textured frame without a tag (7)."""
+    from repas_tpu_torch.core.config import PnPConfig
+    from repas_tpu_torch.detect.render import render_tag_in_scene
+
+    tag = PnPConfig().tag_size_m
+    z_small = ROBUST_K[0, 0] * tag / 38.0
+    poses = [(9, _rot(0, 0, 0), (-0.08, -0.04, 0.35)),
+             (16, _rot(20, 0, 15), (0.1, 0.05, 0.40)),
+             (9, _rot(-15, 10, -30), (0.12, -0.08, 0.45)),
+             (16, _rot(15, 20, -10), (-0.12, 0.08, 0.45)),
+             (9, _rot(65, 0, 10), (0.02, 0.01, z_small)),
+             (16, _rot(65, 0, 10), (0.02, 0.01, z_small)),
+             (16, _rot(10, -10, 5), (0.02, 0.03, 0.4))]
+    imgs = [render_tag_in_scene(tid, R, np.asarray(t), ROBUST_K, tag, (H, W),
+                                background=180.0) for tid, R, t in poses]
+    imgs[6] = 255.0 * (imgs[6] / 255.0) ** 3
+    y, x = np.mgrid[0:H, 0:W]
+    imgs.append(140 + 50 * np.sin(x / 37.0) * np.cos(y / 53.0)
+                + 20 * np.sin((x + 2 * y) / 11.0))
+    rng = np.random.default_rng(seed)
+    f = np.stack(imgs) + rng.integers(-8, 8, (ROBUST_BATCH, H, W))
+    return np.repeat(np.clip(f, 0, 255)[..., None], 3, axis=-1).astype(
+        np.uint8)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -186,6 +247,183 @@ def check_results(out, out_cpu0, dev_name):
          "frame0_ids": ids_gpu.tolist()})
 
 
+def ladder_and_pose(frames, K, cfg, tag):
+    """The robust workload: staged ladder, then best-order PnP on each
+    frame's best slot (as bench.py's robust ladder times it)."""
+    from repas_tpu_torch.detect.robust import detect_tags_robust_staged
+    from repas_tpu_torch.pose.pnp import solve_pnp_best_order
+
+    det = detect_tags_robust_staged(frames, cfg)
+    best = torch.argmax(torch.where(det.valid, det.decision_margin, -1.0),
+                        dim=1)
+    rows = torch.arange(frames.shape[0], device=frames.device)
+    R, t, err, order = solve_pnp_best_order(det.corners[rows, best], K, tag)
+    return det, best, t, err
+
+
+def check_b4(mask, iters):
+    """B4 on the ladder's first B4 input: the row unit on the initial
+    labels, the column unit on the row unit's output, and the tiled CCL,
+    each exactly against its plain version (and the CCL against B1);
+    CUDA-event times of kernel and plain."""
+    from repas_tpu_torch.kernels import ccl_cuda, ccl_tiled
+
+    B, h, w = mask.shape
+    idx = torch.arange(h * w, dtype=torch.int32, device=mask.device)
+    labels0 = torch.where(mask, idx.reshape(h, w), h * w)
+    rows_plain = ccl_tiled.seg_scan_axis_plain(mask, labels0, 2)
+    cases = [
+        ("rows", lambda: ccl_tiled.seg_scan_axis_cuda(mask, labels0, 2),
+         lambda: ccl_tiled.seg_scan_axis_plain(mask, labels0, 2)),
+        ("columns", lambda: ccl_tiled.seg_scan_axis_cuda(mask, rows_plain, 1),
+         lambda: ccl_tiled.seg_scan_axis_plain(mask, rows_plain, 1)),
+        ("tiled_ccl",
+         lambda: ccl_tiled.connected_components_tiled_cuda(mask, iters),
+         lambda: ccl_tiled.connected_components_tiled_plain(mask, iters)),
+    ]
+    out = {}
+    for name, kern, plain in cases:
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"B4 {name}: kernel differs from its plain "
+                                 f"version at {bad} pixels")
+        out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5, 1)}
+    if not torch.equal(ccl_tiled.connected_components_tiled_cuda(mask, iters),
+                       ccl_cuda.connected_components_cuda(mask, iters)):
+        raise AssertionError("B4 tiled CCL differs from B1's labels")
+    log({"kernel": "B4 ccl_tiled", "input_shape": list(mask.shape),
+         "iters": iters, "foreground_frac": float(mask.float().mean()),
+         "max_abs_err": 0.0, **{f"{k}_{m}": v[m] for k, v in out.items()
+                                for m in ("ms", "plain_ms")}})
+    return {"name": "B4 ccl_tiled", "route": "cuda",
+            "source": "repas_tpu_torch/kernels/csrc/ccl_tiled.cu",
+            "replaces": "repas_tpu/kernels/ccl_pallas.py:108",
+            "launches": 0, "max_abs_err": 0.0,
+            "ms": out["tiled_ccl"]["ms"],
+            "plain_ms": out["tiled_ccl"]["plain_ms"]}
+
+
+def robust_phase(dev, gpu_line):
+    """The staged ladder + best-order PnP on the card; returns B4's
+    kernel record (launches from the counted ladder run) and the counted
+    run's launch counts."""
+    from repas_tpu_torch.core.config import DetectorConfig, PnPConfig
+    from repas_tpu_torch.detect import robust
+    from repas_tpu_torch.kernels import _build, ccl_tiled
+
+    frames_np = robust_frames()
+    frames = torch.from_numpy(frames_np).to(dev)
+    K = torch.from_numpy(ROBUST_K).to(dev)
+    cfg = DetectorConfig()
+    tag = PnPConfig().tag_size_m
+
+    # warm-up run (copies the cached constants) that records B4's input
+    with Capture(ccl_tiled, "connected_components_tiled_cuda") as cap:
+        ladder_and_pose(frames, K, cfg, tag)
+        torch.cuda.synchronize()
+    if cap.args is None:
+        raise AssertionError("the ladder never called kernel B4")
+    (mask, iters), _ = cap.args
+    record = check_b4(mask, iters)
+
+    found_a = robust._stage_a(frames, cfg)[1].cpu().tolist()
+    if found_a != ROBUST_FOUND_A:
+        raise AssertionError(f"stage A found {found_a}, expected "
+                             f"{ROBUST_FOUND_A}")
+
+    # the ladder, counted: launches, wave tests and synchronizing calls
+    _build.reset_launches()
+    robust.host_reads["wave_tests"] = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            det, best, t, err = ladder_and_pose(frames, K, cfg, tag)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    wave_tests = robust.host_reads["wave_tests"]
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    log({"phase": "robust_counts", "launches": counts,
+         "wave_tests": wave_tests, "sync_calls": len(syncs)})
+    if len(syncs) > wave_tests:
+        raise AssertionError(f"the ladder synchronized {len(syncs)} times "
+                             f"for {wave_tests} wave tests: {syncs[:5]}")
+    missing = [k for k in ("ccl", "patch_extract", "ccl_tiled")
+               if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched by the ladder: {missing}")
+    record["launches"] = counts["ccl_tiled"]
+
+    # results: best-slot ids, poses, and two frames against the CPU
+    rows = torch.arange(ROBUST_BATCH, device=dev)
+    best_id = det.ids[rows, best].cpu().tolist()
+    best_valid = det.valid[rows, best].cpu().tolist()
+    tz, err = t[:, 2].cpu(), err.cpu()
+    for i, want in enumerate(ROBUST_IDS):
+        if want is None:
+            if bool(det.valid[i].any()):
+                raise AssertionError(f"frame {i}: a valid slot in a frame "
+                                     f"without a tag: {det.ids[i].tolist()}")
+        elif not (best_valid[i] and best_id[i] == want):
+            raise AssertionError(f"frame {i}: best slot {best_id[i]} "
+                                 f"(valid {best_valid[i]}), expected {want}")
+        elif not (float(tz[i]) > 0 and float(err[i]) < 1.0):
+            raise AssertionError(f"frame {i}: PnP t_z {float(tz[i])}, "
+                                 f"error {float(err[i])} px")
+    sub = [4, 7]
+    cpu = robust.detect_tags_robust_staged(torch.from_numpy(frames_np[sub]),
+                                           cfg)
+    for j, i in enumerate(sub):
+        if not (torch.equal(det.ids[i].cpu(), cpu.ids[j])
+                and torch.equal(det.valid[i].cpu(), cpu.valid[j])):
+            raise AssertionError(f"frame {i} on the card vs CPU: ids "
+                                 f"{det.ids[i].tolist()} vs "
+                                 f"{cpu.ids[j].tolist()}")
+    v = cpu.valid
+    cdiff = (det.corners[sub].cpu() - cpu.corners).abs()[v]
+    corner_err = float(cdiff.max()) if cdiff.numel() else 0.0
+    if corner_err > 0.05:
+        raise AssertionError(f"frames {sub} corners differ from the CPU by "
+                             f"{corner_err} px")
+    log({"phase": "robust_results", "best_ids": best_id,
+         "stage_a_found": found_a, "t_z_m": tz.tolist(),
+         "reproj_err_px": err.tolist(),
+         "frames_4_7_vs_cpu_corner_max_px": corner_err})
+
+    # ladder + PnP time: host clock around synchronized calls
+    call_ms = []
+    for _ in range(ROBUST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ladder_and_pose(frames, K, cfg, tag)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(call_ms))
+    log({"phase": "robust_ladder", "batch": ROBUST_BATCH, "height": H,
+         "width": W, "call_ms_median": med, "call_ms_all": call_ms,
+         "frames_per_s": ROBUST_BATCH * 1e3 / med, "gpu": gpu_line})
+
+    # the single-image ladder on one frame launches B4 too
+    _build.reset_launches()
+    single = robust.detect_tags_robust(frames[0])
+    torch.cuda.synchronize()
+    single_counts = dict(_build.launches)
+    if single_counts["ccl_tiled"] < 1:
+        raise AssertionError(f"detect_tags_robust never launched B4: "
+                             f"{single_counts}")
+    if 9 not in single.ids[single.valid].tolist():
+        raise AssertionError(f"detect_tags_robust on frame 0: "
+                             f"{single.ids.tolist()}")
+    log({"phase": "robust_single", "launches": single_counts,
+         "ids": single.ids.tolist()})
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -198,7 +436,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    gpu_line = smi.stdout.strip().splitlines()[0]
+    log(gpu_line)
 
     dev = torch.device("cuda", 0)
     dev_name = torch.cuda.get_device_name(0)
@@ -271,6 +510,9 @@ def main() -> int:
          "step_ms_median": med, "step_ms_all": step_ms,
          "step_ms_cuda_events": ev_ms, "frames_per_s": BATCH * 1e3 / med,
          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+
+    with torch.no_grad():
+        records.append(robust_phase(dev, gpu_line))
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

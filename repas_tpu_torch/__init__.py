@@ -8,8 +8,10 @@ never jax and nothing from ``repas_tpu``:
   kernels/  image ops, CCL, patch extraction, point cloud, and the
             hand-written Hopper kernels (``kernels/csrc``) that replace
             the reference's Pallas kernels
-  detect/   tag36h11 codebook, synthetic renderer, batched detector
-  pose/     IPPE-square + LM PnP, depth correction, multi-tag fusion
+  detect/   tag36h11 codebook, synthetic renderer, batched detector,
+            robust retry ladder
+  pose/     IPPE-square + LM PnP (and its best corner order), depth
+            correction, multi-tag fusion
   pipeline  ``process_frames``: detect -> PnP -> fusion -> point cloud
 
 Every entry point takes its device from its input tensors.

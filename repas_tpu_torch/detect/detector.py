@@ -17,8 +17,8 @@ loop over frames or candidates and no host sync.
   8. 8x8 decode against the 587-code table under 4 rotations
   9. top-D compaction by decision margin
 
-Not ported yet: Gaussian blur (quad_sigma > 0) and the candidate outputs
-of ``with_candidates`` (used only by the robust ladder).
+With ``with_candidates`` it also returns every candidate quad's bbox and
+tag-likeness score, which the robust ladder escalates on.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from repas_tpu_torch.kernels.ccl import (connected_components,
                                          top_k_components, top_k_stable)
 from repas_tpu_torch.kernels.image import (adaptive_threshold,
                                            bilinear_sample_patch, decimate,
-                                           rgb_to_gray)
+                                           gaussian_blur, rgb_to_gray)
 from repas_tpu_torch.kernels.patch_extract import (ROW_TILE,
                                                    extract_patches_pyramid,
                                                    extract_windows_plain)
@@ -318,7 +318,8 @@ def _decode_quad(quad: torch.Tensor, table: torch.Tensor, perms: torch.Tensor,
     coords (N,...,2) to intensities (N,...).
 
     Returns (ids (N,), rotation k (N,), hamming (N,), margin (N,),
-    corners (N,4,2) rolled to canonical TL,TR,BR,BL order). The decision
+    corners (N,4,2) rolled to canonical TL,TR,BR,BL order, tagness (N,)
+    the quad's tag-likeness whether or not it decoded). The decision
     margin follows AprilTag3: linear white/black gray models from the
     quiet-zone ring and the border cells, per-cell thresholds, margin =
     min(mean white-side, mean black-side distance)."""
@@ -375,11 +376,14 @@ def _decode_quad(quad: torch.Tensor, table: torch.Tensor, perms: torch.Tensor,
     margin = torch.minimum(white_score, black_score)
 
     white_ref = torch.mean(ring_v, dim=-1)
-    black_ref = torch.sum(raw_flat * bm_flat, dim=-1) / torch.sum(bm_flat)
+    # the reference divides by the constant border-cell count, which XLA
+    # folds into a multiply by its f32 reciprocal (probed)
+    inv_border = 1.0 / (4 * (cells - 1))
+    black_ref = torch.sum(raw_flat * bm_flat, dim=-1) * inv_border
     contrast_ok = (white_ref - black_ref) > 10.0
     thresh_border = 0.5 * (white_ref + black_ref)
     dark_border = border_mask & (raw < thresh_border[:, None, None])
-    border_frac = torch.sum(dark_border, dim=(-2, -1)) / torch.sum(border_mask)
+    border_frac = torch.sum(dark_border, dim=(-2, -1)) * inv_border
 
     rbits = bits[:, perms]                                # (N,4,36)
     dist = torch.sum(rbits[:, :, None, :] != table[None, None], dim=-1)
@@ -393,19 +397,28 @@ def _decode_quad(quad: torch.Tensor, table: torch.Tensor, perms: torch.Tensor,
     # corner k, so roll corners so slot 0 is the canonical TL
     roll_idx = (torch.arange(4, device=dev) + k[:, None]) % 4
     corners = _gather_last2(quad, roll_idx)
+    tagness = (torch.clamp(border_frac - 0.5, min=0.0)
+               * torch.clamp(white_ref - black_ref, 0.0, 100.0)
+               * torch.clamp(36.0 - ham.to(torch.float32), min=0.0))
     return (torch.where(ok, tag_id, -1).to(torch.int32), k.to(torch.int32),
-            ham.to(torch.int32), torch.where(ok, margin, 0.0), corners)
+            ham.to(torch.int32), torch.where(ok, margin, 0.0), corners,
+            tagness)
 
 
 def detect_tags(img: torch.Tensor,
-                config: DetectorConfig = DetectorConfig()) -> Detections:
+                config: DetectorConfig = DetectorConfig(),
+                with_candidates: bool = False):
     """Detect tag36h11 tags in a batch of images: (B,H,W,3) uint8 RGB or
     (B,H,W) gray. Returns fixed-capacity ``Detections``
-    (config.max_detections slots per frame)."""
-    if config.quad_sigma > 0:
-        raise NotImplementedError("quad_sigma > 0 (Gaussian blur) is not "
-                                  "ported yet")
+    (config.max_detections slots per frame).
+
+    With `with_candidates`, returns (Detections, cand_bbox (B,C,4) f32
+    [xmin,ymin,xmax,ymax] of every refined candidate quad at full
+    resolution, cand_score (B,C) f32 tag-likeness, 0 for dead slots and
+    for quads over 192 px, which decode well decimated)."""
     gray = rgb_to_gray(img) if img.ndim == 4 else img.to(torch.float32)
+    if config.quad_sigma > 0:
+        gray = gaussian_blur(gray, config.quad_sigma)
     B, h, w = gray.shape
     dev = gray.device
 
@@ -507,10 +520,11 @@ def detect_tags(img: torch.Tensor,
                                     (p - (sc - 1.0) / 2.0) / sc - off_n)
         return out.reshape(pts_full.shape[:-1])
 
-    ids, _, hams, margins, corners = _decode_quad(
+    ids, _, hams, margins, corners, tagness = _decode_quad(
         quads.reshape(n, 4, 2), table, perms, config.decode_sharpening,
         config.max_hamming, sampler)
-    ids, hams, margins = (x.reshape(B, C) for x in (ids, hams, margins))
+    ids, hams, margins, tagness = (x.reshape(B, C) for x in
+                                   (ids, hams, margins, tagness))
     corners = corners.reshape(B, C, 4, 2)
 
     # quad sanity: distinct corners
@@ -525,7 +539,7 @@ def detect_tags(img: torch.Tensor,
     sel_valid = top_scores > 0
     sel_corners = _gather_last2(corners.reshape(B, C, 8), top_idx).reshape(
         B, D, 4, 2)
-    return Detections(
+    det = Detections(
         ids=torch.where(sel_valid, torch.gather(ids, 1, top_idx), -1),
         corners=sel_corners,
         centers=torch.mean(sel_corners, dim=-2),
@@ -535,3 +549,11 @@ def detect_tags(img: torch.Tensor,
         areas=torch.gather(areas, 1, top_idx),
         valid=sel_valid,
     )
+    if with_candidates:
+        cand_bbox = torch.cat([torch.amin(quads, dim=-2),
+                               torch.amax(quads, dim=-2)], dim=-1)
+        side = torch.amax(cand_bbox[..., 2:] - cand_bbox[..., :2], dim=-1)
+        cand_score = torch.where(valid_c & sane & (side <= 192.0), tagness,
+                                 0.0)
+        return det, cand_bbox, cand_score
+    return det

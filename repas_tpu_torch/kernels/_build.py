@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/*.cu`` are compiled by one ``nvcc`` call for ``sm_90a`` into one
+Each ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The
 build runs at first use, into ``build/kernels/<hash>/`` beside the
 package (listed in ``.gitignore``), keyed by a hash of the sources and
@@ -24,13 +25,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 LIB_NAME = "librepas_kernels.so"
 
 # Wrapper calls that launched their kernel, by kernel. A wrapper adds one
 # where it launches, and nowhere else; callers may reset the counts.
-launches = {"ccl": 0, "patch_extract": 0, "pointcloud": 0}
+launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -42,6 +44,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # mask, out, scratch, B, H, W, iters, device, stream
     "repas_ccl": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # mask, labels, out, agg_v, agg_b, B, H, W, along_rows, chunk, device,
+    # stream
+    "repas_seg_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # mask, out, scratch, agg_v, agg_b, B, H, W, iters, chunk, device, stream
+    "repas_ccl_tiled": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # pyr, origins, out, B, C, Hp, W, ah, aw, device, stream
     "repas_patch_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # depth, rgb, K, scale, out, B, H, W, device, stream
@@ -87,21 +94,37 @@ def build() -> Path:
     if so.exists():
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: concurrent builds (test
-    # workers) never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    # build in a private directory and rename the library into place:
+    # concurrent builds (test workers) never load a half-written library
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)
+    try:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"),
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compiler before reporting any failure
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in jobs]
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp / LIB_NAME),
+               *[c[c.index("-o") + 1] for c, _, _ in logs]]
+        for c, out, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (exit {rc}):\n"
+                                   f"{' '.join(c)}\n{out}")
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp / LIB_NAME, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
+    build_log = "".join(out for _, out, _ in logs) + res.stdout + res.stderr
     return so
 
 

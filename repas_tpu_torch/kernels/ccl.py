@@ -1,6 +1,7 @@
 """Connected-component labeling and top-K component selection.
 
-Port of ``repas_tpu/kernels/ccl.py``: ``connected_components`` (dispatch),
+Port of ``repas_tpu/kernels/ccl.py``: ``connected_components`` (dispatch
+by size and device, with ``MAX_VMEM_PIXELS``),
 its plain version (``_connected_components_xla`` with ``jump_every=0``),
 ``_component_runs`` and both paths of ``top_k_components``. All functions
 take a leading batch dimension: masks and labels are (B,H,W).
@@ -17,12 +18,23 @@ import torch
 import torch.nn.functional as F
 
 
+# images up to this many pixels go through B1, larger ones through the
+# tiled B4, as the reference sends them to its one-block and band-tiled
+# Pallas kernels (both kernels give the same labels)
+MAX_VMEM_PIXELS = 512 * 1024
+
+
 def connected_components(mask: torch.Tensor, iters: int = 5) -> torch.Tensor:
     """8-connected labels of a (B,H,W) bool mask -> (B,H,W) int32.
 
-    A CUDA tensor goes through the hand-written kernel (ccl_cuda.py); a
-    CPU tensor through the plain version below.
+    Up to MAX_VMEM_PIXELS per image, a CUDA tensor goes through kernel B1
+    (ccl_cuda.py), above it through kernel B4 (ccl_tiled.py); a CPU
+    tensor through the matching plain version.
     """
+    if mask.shape[-2] * mask.shape[-1] > MAX_VMEM_PIXELS:
+        from repas_tpu_torch.kernels.ccl_tiled import \
+            connected_components_tiled
+        return connected_components_tiled(mask, iters)
     if mask.is_cuda:
         from repas_tpu_torch.kernels.ccl_cuda import connected_components_cuda
         return connected_components_cuda(mask, iters)

