@@ -20,12 +20,13 @@
    best-order PnP on the best slot of each of 8 synthetic 720p frames
    (4 easy, 2 that only the stage-B ROI re-detection decodes, 1
    gamma-darkened, 1 without a tag, which forces stage C and kernel B4).
-   Holds B4 exactly against its plain version on the ladder's first B4
-   input, resets the counts, runs the ladder with synchronizing calls
-   recorded as warnings (no more than one per wave test), reads the
-   counts (B1, B2 and B4 launched), checks ids, poses and two frames
-   against the port's CPU run, times it, and runs detect_tags_robust on
-   one frame (B4 launched there too);
+   Holds B1 and B2 exactly against their plain versions on the ladder's
+   first input at each shape (stage A's frames, stage B's ROIs, stage
+   C's full frames) and B4 on its first input, resets the counts, runs
+   the ladder with synchronizing calls recorded as warnings (no more
+   than one per wave test), reads the counts (B1, B2 and B4 launched),
+   checks ids, poses and two frames against the port's CPU run, times
+   it, and runs detect_tags_robust on one frame (B4 launched there too);
 6. prints one JSON line of kernel results, then, last, one JSON line
    {"ok": true, "device": {...}}.
 
@@ -133,19 +134,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 class Capture:
-    """Records the arguments of the first call of module.name and passes
-    every call through; restores the attribute on exit."""
+    """Records the arguments of the first call of module.name (with
+    `every_shape`, of the first call at each distinct set of argument
+    shapes) and passes every call through; restores the attribute on
+    exit."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, every_shape: bool = False):
         self.module, self.name = module, name
-        self.args = None
+        self.every_shape = every_shape
+        self.calls = []
+        self.keys = set()
+
+    @property
+    def args(self):
+        return self.calls[0] if self.calls else None
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapped(*args, **kwargs):
-            if self.args is None:
-                self.args = (args, kwargs)
+            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                        for a in args)
+            if key not in self.keys and (self.every_shape or not self.calls):
+                self.keys.add(key)
+                self.calls.append((args, kwargs))
             return self.orig(*args, **kwargs)
 
         setattr(self.module, self.name, wrapped)
@@ -156,58 +168,80 @@ class Capture:
         return False
 
 
+def hold(name, shape, kern, plain, rtol=0.0, **extra):
+    """Kernel against its plain version on the same inputs (exact, or
+    within `rtol` relative), then CUDA-event times of both; logs one line
+    and returns (max_abs_err, ms, plain_ms)."""
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: kernel gives {tuple(got.shape)} "
+                             f"{got.dtype}, plain {tuple(ref.shape)} "
+                             f"{ref.dtype}")
+    diff = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+    max_err = float(diff.max()) if diff.numel() else 0.0
+    bound = (rtol * ref.to(torch.float64).abs()) if rtol else 0.0
+    if not bool(torch.all(diff <= bound)):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version, max abs err {max_err}")
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain)
+    log({"kernel": name, "input_shape": list(shape), **extra,
+         "max_abs_err": max_err, "tolerance_rtol": rtol, "ms": ms,
+         "plain_ms": plain_ms})
+    return max_err, ms, plain_ms
+
+
+B1_SRC = ("repas_tpu_torch/kernels/csrc/ccl.cu",
+          "repas_tpu/kernels/ccl_pallas.py:35")
+B2_SRC = ("repas_tpu_torch/kernels/csrc/patch_extract.cu",
+          "repas_tpu/kernels/patch_extract.py:61")
+B3_SRC = ("repas_tpu_torch/kernels/csrc/pointcloud.cu",
+          "repas_tpu/kernels/pointcloud.py:102")
+
+
+def record(name, src, err_ms):
+    max_err, ms, plain_ms = err_ms
+    return {"name": name, "route": "cuda", "source": src[0],
+            "replaces": src[1], "launches": 0, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def check_b1(name, mask, iters):
+    from repas_tpu_torch.kernels import ccl, ccl_cuda
+    return record(name, B1_SRC, hold(
+        name, mask.shape,
+        lambda: ccl_cuda.connected_components_cuda(mask, iters),
+        lambda: ccl.connected_components_plain(mask, iters), iters=iters))
+
+
+def check_b2(name, pyr, origins, ah, aw):
+    from repas_tpu_torch.kernels import patch_extract
+    return record(name, B2_SRC, hold(
+        name, pyr.shape,
+        lambda: patch_extract.extract_windows(pyr, origins, ah, aw),
+        lambda: patch_extract.extract_windows_plain(pyr, origins, ah, aw),
+        windows=list(origins.shape[:-1]), window=[ah, aw]))
+
+
 def check_kernels(captured):
     """Each kernel against its plain version on the card, at the main
     path's inputs; returns the kernel records (launches filled later)."""
-    from repas_tpu_torch.kernels import (ccl, ccl_cuda, patch_extract,
-                                         pointcloud)
+    from repas_tpu_torch.kernels import pointcloud
 
     (mask, iters), _ = captured["ccl"]
     (pyr, origins, ah, aw), _ = captured["patch_extract"]
     (depth, rgb32, K), kw = captured["pointcloud"]
     scale = kw["scale"]
-
-    specs = [
-        ("B1 ccl", mask, "repas_tpu_torch/kernels/csrc/ccl.cu",
-         "repas_tpu/kernels/ccl_pallas.py:35",
-         lambda: ccl_cuda.connected_components_cuda(mask, iters),
-         lambda: ccl.connected_components_plain(mask, iters), 0.0),
-        ("B2 patch_extract", pyr,
-         "repas_tpu_torch/kernels/csrc/patch_extract.cu",
-         "repas_tpu/kernels/patch_extract.py:61",
-         lambda: patch_extract.extract_windows(pyr, origins, ah, aw),
-         lambda: patch_extract.extract_windows_plain(pyr, origins, ah, aw),
-         0.0),
-        ("B3 pointcloud", depth, "repas_tpu_torch/kernels/csrc/pointcloud.cu",
-         "repas_tpu/kernels/pointcloud.py:102",
-         lambda: pointcloud.fused_pointcloud(depth, rgb32, K, scale),
-         lambda: pointcloud.fused_pointcloud_plain(depth, rgb32, K, scale),
-         1e-6),
+    return [
+        check_b1("B1 ccl", mask, iters),
+        check_b2("B2 patch_extract", pyr, origins, ah, aw),
+        record("B3 pointcloud", B3_SRC, hold(
+            "B3 pointcloud", depth.shape,
+            lambda: pointcloud.fused_pointcloud(depth, rgb32, K, scale),
+            lambda: pointcloud.fused_pointcloud_plain(depth, rgb32, K, scale),
+            1e-6)),
     ]
-    records = []
-    for name, first_arg, source, replaces, kern, plain, rtol in specs:
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != ref.dtype:
-            raise AssertionError(f"{name}: kernel gives {tuple(got.shape)} "
-                                 f"{got.dtype}, plain {tuple(ref.shape)} "
-                                 f"{ref.dtype}")
-        diff = (got.to(torch.float64) - ref.to(torch.float64)).abs()
-        max_err = float(diff.max())
-        bound = (rtol * ref.to(torch.float64).abs()) if rtol else 0.0
-        if not bool(torch.all(diff <= bound)):
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version, max abs err {max_err}")
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain)
-        log({"kernel": name, "input_shape": list(first_arg.shape),
-             "max_abs_err": max_err, "tolerance_rtol": rtol, "ms": ms,
-             "plain_ms": plain_ms})
-        records.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": 0,
-                        "max_abs_err": max_err, "ms": ms,
-                        "plain_ms": plain_ms})
-    return records
 
 
 def check_results(out, out_cpu0, dev_name):
@@ -306,12 +340,14 @@ def check_b4(mask, iters):
 
 
 def robust_phase(dev, gpu_line):
-    """The staged ladder + best-order PnP on the card; returns B4's
-    kernel record (launches from the counted ladder run) and the counted
-    run's launch counts."""
+    """The staged ladder + best-order PnP on the card; returns the kernel
+    records of the ladder's path (B1 and B2 at each of the ladder's input
+    shapes, B4 on its first input), launches from the counted ladder
+    run."""
     from repas_tpu_torch.core.config import DetectorConfig, PnPConfig
     from repas_tpu_torch.detect import robust
-    from repas_tpu_torch.kernels import _build, ccl_tiled
+    from repas_tpu_torch.kernels import (_build, ccl_cuda, ccl_tiled,
+                                         patch_extract)
 
     frames_np = robust_frames()
     frames = torch.from_numpy(frames_np).to(dev)
@@ -319,14 +355,24 @@ def robust_phase(dev, gpu_line):
     cfg = DetectorConfig()
     tag = PnPConfig().tag_size_m
 
-    # warm-up run (copies the cached constants) that records B4's input
-    with Capture(ccl_tiled, "connected_components_tiled_cuda") as cap:
+    # warm-up run (copies the cached constants) that records the inputs
+    # of B4's first call and of B1's and B2's first call at each shape:
+    # stage A's decimated frames, stage B's 256 px ROIs (whose windows
+    # take B2's exact-window geometry) and stage C's full frames
+    with Capture(ccl_tiled, "connected_components_tiled_cuda") as cap, \
+            Capture(ccl_cuda, "connected_components_cuda", True) as cap1, \
+            Capture(patch_extract, "extract_windows", True) as cap2:
         ladder_and_pose(frames, K, cfg, tag)
         torch.cuda.synchronize()
     if cap.args is None:
         raise AssertionError("the ladder never called kernel B4")
+    records = [check_b1(f"B1 ccl (ladder {tuple(a[0].shape)})", *a)
+               for a, _ in cap1.calls]
+    records += [check_b2(f"B2 patch_extract (ladder {tuple(a[0].shape)}, "
+                         f"{a[2]}x{a[3]} windows)", *a)
+                for a, _ in cap2.calls]
     (mask, iters), _ = cap.args
-    record = check_b4(mask, iters)
+    records.append(check_b4(mask, iters))
 
     found_a = robust._stage_a(frames, cfg)[1].cpu().tolist()
     if found_a != ROBUST_FOUND_A:
@@ -357,7 +403,9 @@ def robust_phase(dev, gpu_line):
                if counts[k] < 1]
     if missing:
         raise AssertionError(f"kernels not launched by the ladder: {missing}")
-    record["launches"] = counts["ccl_tiled"]
+    keys = {"B1": "ccl", "B2": "patch_extract", "B4": "ccl_tiled"}
+    for rec in records:
+        rec["launches"] = counts[keys[rec["name"][:2]]]
 
     # results: best-slot ids, poses, and two frames against the CPU
     rows = torch.arange(ROBUST_BATCH, device=dev)
@@ -421,7 +469,7 @@ def robust_phase(dev, gpu_line):
                              f"{single.ids.tolist()}")
     log({"phase": "robust_single", "launches": single_counts,
          "ids": single.ids.tolist()})
-    return record
+    return records
 
 
 def main() -> int:
@@ -512,7 +560,7 @@ def main() -> int:
          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
 
     with torch.no_grad():
-        records.append(robust_phase(dev, gpu_line))
+        records += robust_phase(dev, gpu_line)
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

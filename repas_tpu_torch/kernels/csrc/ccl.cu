@@ -18,9 +18,10 @@
 // such label images is about 15 MB and stays in the 50 MB L2 between
 // launches. Design: the row pass runs one warp per (frame, row) with a
 // 32-wide shuffle segmented scan per chunk and a carried running min
-// (coalesced loads along the row); the column pass runs one thread per
-// (frame, column), so neighbouring threads read neighbouring addresses;
-// the stencil runs one thread per pixel. 3*iters launches per call.
+// (coalesced loads along the row; kernel B4 launches the same pass); the
+// column pass runs one thread per (frame, column), so neighbouring threads
+// read neighbouring addresses; the stencil runs one thread per pixel.
+// 3*iters launches per call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,8 +31,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // One 32-wide chunk of a segmented inclusive min-scan: lane i holds
-// (v, brk) and ends with min over the lanes back to the last break,
-// with the carry from earlier chunks folded in where no break intervenes.
+// (v, brk) and ends with the min back to the last break at or before it,
+// or, with no break in the chunk up to it, also over `carry`.
 __device__ __forceinline__ int seg_scan_chunk(int v, int brk, int carry,
                                               int lane) {
 #pragma unroll
@@ -47,8 +48,13 @@ __device__ __forceinline__ int seg_scan_chunk(int v, int brk, int carry,
   return v;
 }
 
-// Row pass: one warp per (frame, row). src == nullptr initialises the
-// labels from the mask; otherwise src may alias dst.
+// Row pass, B1's and B4's row unit (ccl_tiled.cu): one warp per (frame,
+// row), forward then backward segmented running min, background reset to
+// the sentinel. src == nullptr starts from the initial labels (linear
+// index on the mask, sentinel elsewhere). Otherwise any labels are read,
+// and a background pixel starts its segment with its own input label, as
+// the reference's scan combine does (in the CCL that label is always the
+// sentinel). src may alias dst.
 __global__ void ccl_rows(const uint8_t* __restrict__ mask, const int* src,
                          int* dst, int B, int H, int W) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -58,32 +64,37 @@ __global__ void ccl_rows(const uint8_t* __restrict__ mask, const int* src,
   const int y = warp % H;
   const size_t base = (size_t)warp * W;
   const uint8_t* m = mask + base;
+  const int* in = src ? src + base : nullptr;
   int* out = dst + base;
 
   int carry = sent;
   for (int x0 = 0; x0 < W; x0 += 32) {
     const int x = x0 + lane;
-    const bool in = x < W;
-    const bool fg = in && m[x];
+    const bool ok = x < W;
+    const bool fg = ok && m[x];
     int v = sent;
-    if (fg) v = src ? src[base + x] : y * W + x;
+    if (ok) v = in ? in[x] : (fg ? y * W + x : sent);
     v = seg_scan_chunk(v, fg ? 0 : 1, carry, lane);
-    if (!fg) v = sent;
-    if (in) out[x] = v;
+    // the carry is the running value before the background reset: a
+    // background lane 31 starts the next chunk's segment with its label
     carry = __shfl_sync(kFull, v, 31);
+    if (ok) out[x] = fg ? v : sent;
   }
   __syncwarp();  // the backward pass reads what other lanes wrote
   carry = sent;
   for (int x0 = W - 1; x0 >= 0; x0 -= 32) {
     const int x = x0 - lane;
-    const bool in = x >= 0;
-    const bool fg = in && m[x];
-    int v = fg ? out[x] : sent;
+    const bool ok = x >= 0;
+    const bool fg = ok && m[x];
+    int v = ok ? out[x] : sent;
     v = seg_scan_chunk(v, fg ? 0 : 1, carry, lane);
-    if (!fg) v = sent;
-    if (in) out[x] = v;
     carry = __shfl_sync(kFull, v, 31);
+    if (ok) out[x] = fg ? v : sent;
   }
+}
+
+int row_blocks(int B, int H, int threads) {
+  return (int)(((long long)B * H * 32 + threads - 1) / threads);
 }
 
 // Column pass, in place: one thread per (frame, column).
@@ -156,12 +167,12 @@ extern "C" int repas_ccl(const void* mask, void* out, void* scratch, int B,
   int* cur = (iters % 2 == 0) ? (int*)out : (int*)scratch;
   int* other = (cur == (int*)out) ? (int*)scratch : (int*)out;
   const int threads = 256;
-  const int row_blocks = (int)(((long long)B * H * 32 + threads - 1) / threads);
+  const int rblocks = row_blocks(B, H, threads);
   const int col_blocks = (B * W + threads - 1) / threads;
   const long long npix = (long long)B * H * W;
   const int pix_blocks = (int)((npix + threads - 1) / threads);
   for (int it = 0; it < iters; ++it) {
-    ccl_rows<<<row_blocks, threads, 0, s>>>(m, it == 0 ? nullptr : cur, cur,
+    ccl_rows<<<rblocks, threads, 0, s>>>(m, it == 0 ? nullptr : cur, cur,
                                             B, H, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     ccl_cols<<<col_blocks, threads, 0, s>>>(m, cur, B, H, W);
@@ -172,6 +183,16 @@ extern "C" int repas_ccl(const void* mask, void* out, void* scratch, int B,
     cur = other;
     other = t;
   }
+  return (int)cudaGetLastError();
+}
+
+// The row pass alone, on the current device: B4's row unit and the first
+// step of each tiled CCL round (ccl_tiled.cu).
+extern "C" int repas_ccl_rows(const void* mask, const void* src, void* dst,
+                              int B, int H, int W, void* stream) {
+  const int threads = 256;
+  ccl_rows<<<row_blocks(B, H, threads), threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int*)src, (int*)dst, B, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -26,79 +26,23 @@
 // a carry pass walks the aggregates of each column, and an apply pass
 // folds the carry into each chunk's prefix up to its first background
 // pixel. Neighbouring threads take neighbouring columns, so every load is
-// coalesced. The row unit keeps B1's warp-per-row shuffle scan (a row is
-// contiguous). 3 launches per direction of the column unit.
+// coalesced. The row unit is B1's row pass (ccl.cu), a warp-per-row
+// shuffle scan (a row is contiguous), which takes any input labels. 3
+// launches per direction of the column unit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// B1's 8-neighbour min stencil (ccl.cu), launched on the caller's device
+// B1's row pass and 8-neighbour min stencil (ccl.cu), launched on the
+// caller's device
+extern "C" int repas_ccl_rows(const void* mask, const void* src, void* dst,
+                              int B, int H, int W, void* stream);
 extern "C" int repas_ccl_stencil(const void* mask, const void* src, void* dst,
                                  int B, int H, int W, void* stream);
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kColThreads = 128;
-
-// One 32-wide chunk of a segmented inclusive min-scan: lane i holds
-// (v, brk) and ends with the min back to the last break at or before it,
-// or, with no break in the chunk up to it, also over `carry`.
-__device__ __forceinline__ int seg_scan_warp(int v, int brk, int carry,
-                                             int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int vs = __shfl_up_sync(kFull, v, d);
-    int bs = __shfl_up_sync(kFull, brk, d);
-    if (lane >= d) {
-      if (!brk) v = min(v, vs);
-      brk |= bs;
-    }
-  }
-  if (!brk) v = min(v, carry);
-  return v;
-}
-
-// Row unit: one warp per (frame, row). src == nullptr starts from the
-// initial labels (linear index on the mask, sentinel elsewhere); src may
-// alias dst.
-__global__ void scan_rows(const uint8_t* __restrict__ mask, const int* src,
-                          int* dst, int B, int H, int W) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= B * H) return;  // uniform across the warp
-  const int sent = H * W;
-  const int y = warp % H;
-  const size_t base = (size_t)warp * W;
-  const uint8_t* m = mask + base;
-  const int* in = src ? src + base : nullptr;
-  int* out = dst + base;
-
-  int carry = sent;
-  for (int x0 = 0; x0 < W; x0 += 32) {
-    const int x = x0 + lane;
-    const bool ok = x < W;
-    const bool fg = ok && m[x];
-    int v = sent;
-    if (ok) v = in ? in[x] : (fg ? y * W + x : sent);
-    v = seg_scan_warp(v, fg ? 0 : 1, carry, lane);
-    // the carry is the running value before the background reset: a
-    // background lane 31 starts the next chunk's segment with its label
-    carry = __shfl_sync(kFull, v, 31);
-    if (ok) out[x] = fg ? v : sent;
-  }
-  __syncwarp();  // the backward pass reads what other lanes wrote
-  carry = sent;
-  for (int x0 = W - 1; x0 >= 0; x0 -= 32) {
-    const int x = x0 - lane;
-    const bool ok = x >= 0;
-    const bool fg = ok && m[x];
-    int v = ok ? out[x] : sent;
-    v = seg_scan_warp(v, fg ? 0 : 1, carry, lane);
-    carry = __shfl_sync(kFull, v, 31);
-    if (ok) out[x] = fg ? v : sent;
-  }
-}
 
 // Row of scan position p along a column, forward or backward.
 __device__ __forceinline__ int col_row(int p, int H, int reverse) {
@@ -194,14 +138,6 @@ cudaError_t scan_cols(const uint8_t* m, const int* src, int* dst, int* agg_v,
   return cudaSuccess;
 }
 
-cudaError_t scan_rows_launch(const uint8_t* m, const int* src, int* dst,
-                             int B, int H, int W, cudaStream_t s) {
-  const int threads = 256;
-  const int blocks = (int)(((long long)B * H * 32 + threads - 1) / threads);
-  scan_rows<<<blocks, threads, 0, s>>>(m, src, dst, B, H, W);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // The unit: labels -> out along rows (along_rows != 0) or columns.
@@ -214,9 +150,7 @@ extern "C" int repas_seg_scan(const void* mask, const void* labels, void* out,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* m = (const uint8_t*)mask;
-  if (along_rows)
-    return (int)scan_rows_launch(m, (const int*)labels, (int*)out, B, H, W,
-                                 s);
+  if (along_rows) return repas_ccl_rows(mask, labels, out, B, H, W, stream);
   return (int)scan_cols(m, (const int*)labels, (int*)out, (int*)agg_v,
                         (uint8_t*)agg_b, B, H, W, chunk, s);
 }
@@ -235,13 +169,13 @@ extern "C" int repas_ccl_tiled(const void* mask, void* out, void* scratch,
   int* cur = (iters % 2 == 0) ? (int*)out : (int*)scratch;
   int* other = (cur == (int*)out) ? (int*)scratch : (int*)out;
   for (int it = 0; it < iters; ++it) {
-    if ((err = scan_rows_launch(m, it == 0 ? nullptr : cur, cur, B, H, W,
-                                s)) != cudaSuccess)
-      return (int)err;
+    int rc = repas_ccl_rows(mask, it == 0 ? nullptr : cur, cur, B, H, W,
+                            stream);
+    if (rc != 0) return rc;
     if ((err = scan_cols(m, cur, cur, (int*)agg_v, (uint8_t*)agg_b, B, H, W,
                          chunk, s)) != cudaSuccess)
       return (int)err;
-    int rc = repas_ccl_stencil(mask, cur, other, B, H, W, stream);
+    rc = repas_ccl_stencil(mask, cur, other, B, H, W, stream);
     if (rc != 0) return rc;
     int* t = cur;
     cur = other;
