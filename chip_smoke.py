@@ -9,8 +9,12 @@
 3. runs the 720p frame pipeline (repas_tpu_torch.pipeline.process_frames)
    once at batch 16 to capture each kernel's inputs at the main path's
    shapes, then holds each kernel against its plain PyTorch version on
-   the card (B1, B2 exact; B3 within 1e-6 relative) and times both with
-   CUDA events;
+   the card (B1, B2 exact; B3 within 1e-6 relative), times both with
+   CUDA events (the kernel's calls queued behind a spin kernel, so the
+   time is the device's alone) and sets the time beside the kernel's
+   bound (bytes over the memory rate or operations over the compute
+   rate, the larger); the CCL lines also print the band launch plan and,
+   in cluster mode, cudaOccupancyMaxActiveClusters;
 4. resets the launch counts, runs the pipeline with synchronizing CUDA
    calls turned into errors (the step must not wait for the device),
    reads the counts, checks the results (tag 9 in every frame, depth-corrected z within 5 mm of
@@ -46,6 +50,28 @@ import torch
 
 BATCH = 16
 H, W = 720, 1280
+
+# The card's peak rates for a kernel's bound (NVIDIA H100 SXM data sheet,
+# at its 700 W limit): device memory, f32 outside the tensor cores (an FMA
+# counts two), and int32 min/compare/select: Hopper's SM has half as many
+# INT32 lanes as FP32 lanes and an integer min is one operation, so a
+# quarter of the f32 FLOP rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
+# int32 operations per pixel per CCL round: four scan directions of (min,
+# select), the separable 3x3 min (four mins) and the background select
+CCL_OPS_PER_PIXEL_ROUND = 13
+# f32 operations per point of B3: z, x and y (7), three colour
+# conversions and scalings (6), the z > 0 select
+B3_OPS_PER_POINT = 14
+NO_LIBRARY_CCL = ("no PyTorch call computes a connected-component "
+                  "labelling or a segmented scan (torch.cummin has no "
+                  "segments)")
+NO_LIBRARY_B2 = ("no PyTorch call extracts windows at per-window origins "
+                 "in one call")
+NO_LIBRARY_B3 = ("no PyTorch call back-projects a depth image with its "
+                 "colours in one call")
 TAG_ID = 9
 TAG_Z = 0.45
 STEPS = 10
@@ -118,11 +144,22 @@ def robust_frames(seed: int = 0):
         np.uint8)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, CUDA events around `iters` calls."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = False) -> float:
+    """Mean device time of fn() in ms, CUDA events around `iters` calls.
+    With `queued`, the calls are enqueued behind a spin kernel long enough
+    to cover their host time, so the events time the device work alone
+    and not the host's gaps between launches (for fn without host
+    syncs)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e9 * (2 * iters * host_s + 0.002)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -184,7 +221,7 @@ def hold(name, shape, kern, plain, rtol=0.0, **extra):
     if not bool(torch.all(diff <= bound)):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version, max abs err {max_err}")
-    ms = cuda_ms(kern)
+    ms = cuda_ms(kern, queued=True)
     plain_ms = cuda_ms(plain)
     log({"kernel": name, "input_shape": list(shape), **extra,
          "max_abs_err": max_err, "tolerance_rtol": rtol, "ms": ms,
@@ -198,30 +235,86 @@ B2_SRC = ("repas_tpu_torch/kernels/csrc/patch_extract.cu",
           "repas_tpu/kernels/patch_extract.py:61")
 B3_SRC = ("repas_tpu_torch/kernels/csrc/pointcloud.cu",
           "repas_tpu/kernels/pointcloud.py:102")
+# B4's CCL is the band kernel of ccl.cu in grid mode; its unit, the direct
+# counterpart of _make_scan_kernel, is ccl_tiled.cu
+B4_SRC = ("repas_tpu_torch/kernels/csrc/ccl.cu",
+          "repas_tpu/kernels/ccl_pallas.py:108")
 
 
-def record(name, src, err_ms):
+def record(name, src, err_ms, nbytes, ops, ops_per_s, library_note,
+           library_ms=None):
+    """A kernel's line of the {"kernels": [...]} result: its times, its
+    bound (the larger of bytes over the memory rate and operations over
+    the rate of their type) and its share of that bound."""
     max_err, ms, plain_ms = err_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     return {"name": name, "route": "cuda", "source": src[0],
             "replaces": src[1], "launches": 0, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_share": bound_ms / ms, "library_ms": library_ms,
+            "library_note": library_note}
+
+
+def ccl_cost(mask, iters):
+    """(bytes, int32 operations) of a CCL call: the mask read once, the
+    labels written once; 13 operations per pixel per round."""
+    n = mask.numel()
+    return n + 4 * n, CCL_OPS_PER_PIXEL_ROUND * iters * n
+
+
+def ccl_plan(mask, cluster_ok=True):
+    """The band launch plan the CCL wrappers take for this mask, with the
+    clusters the card holds at once (cluster mode) or the band CTAs it
+    holds at once (grid mode)."""
+    from repas_tpu_torch.kernels import ccl_cuda
+
+    plan = ccl_cuda.plan_for(mask, cluster_ok)
+    idx = mask.device.index
+    out = {"mode": plan.mode, "cluster": plan.cluster,
+           "band_rows": plan.band_rows, "bands": plan.bands,
+           "images_per_launch": plan.group, "groups": plan.launches,
+           "smem_bytes": plan.smem, "max_active_clusters": None}
+    if plan.mode == "cluster":
+        out["max_active_clusters"] = ccl_cuda.max_active_clusters(
+            plan.cluster, plan.band_rows, mask.shape[2], idx)
+    else:
+        lim = ccl_cuda.card_limits(idx, mask.shape[2])
+        out["resident_band_ctas"] = lim["sm_count"] * min(
+            lim["blocks_per_sm"],
+            (lim["smem_block"] + ccl_cuda.SMEM_RESERVED)
+            // (plan.smem + ccl_cuda.SMEM_RESERVED))
+    return out
 
 
 def check_b1(name, mask, iters):
     from repas_tpu_torch.kernels import ccl, ccl_cuda
-    return record(name, B1_SRC, hold(
+    plan = ccl_plan(mask)
+    rec = record(name, B1_SRC, hold(
         name, mask.shape,
         lambda: ccl_cuda.connected_components_cuda(mask, iters),
-        lambda: ccl.connected_components_plain(mask, iters), iters=iters))
+        lambda: ccl.connected_components_plain(mask, iters), iters=iters,
+        plan=plan), *ccl_cost(mask, iters), INT32_OPS_PER_S, NO_LIBRARY_CCL)
+    rec["plan"] = plan
+    return rec
 
 
 def check_b2(name, pyr, origins, ah, aw):
     from repas_tpu_torch.kernels import patch_extract
+    # the pyramid and the origins read once, the windows written once
+    nbytes = (pyr.numel() * pyr.element_size()
+              + origins.numel() * origins.element_size()
+              + origins.shape[0] * origins.shape[1] * ah * aw
+              * pyr.element_size())
     return record(name, B2_SRC, hold(
         name, pyr.shape,
         lambda: patch_extract.extract_windows(pyr, origins, ah, aw),
         lambda: patch_extract.extract_windows_plain(pyr, origins, ah, aw),
-        windows=list(origins.shape[:-1]), window=[ah, aw]))
+        windows=list(origins.shape[:-1]), window=[ah, aw]), nbytes, 0,
+        F32_OPS_PER_S, NO_LIBRARY_B2)
 
 
 def check_kernels(captured):
@@ -233,6 +326,10 @@ def check_kernels(captured):
     (pyr, origins, ah, aw), _ = captured["patch_extract"]
     (depth, rgb32, K), kw = captured["pointcloud"]
     scale = kw["scale"]
+    npix = depth.numel()
+    # depth (u16) and packed colour (int32) read once, six f32 planes
+    # written once
+    b3_bytes = npix * (depth.element_size() + rgb32.element_size() + 6 * 4)
     return [
         check_b1("B1 ccl", mask, iters),
         check_b2("B2 patch_extract", pyr, origins, ah, aw),
@@ -240,7 +337,8 @@ def check_kernels(captured):
             "B3 pointcloud", depth.shape,
             lambda: pointcloud.fused_pointcloud(depth, rgb32, K, scale),
             lambda: pointcloud.fused_pointcloud_plain(depth, rgb32, K, scale),
-            1e-6)),
+            1e-6), b3_bytes, B3_OPS_PER_POINT * npix, F32_OPS_PER_S,
+            NO_LIBRARY_B3),
     ]
 
 
@@ -297,9 +395,9 @@ def ladder_and_pose(frames, K, cfg, tag):
 
 def check_b4(mask, iters):
     """B4 on the ladder's first B4 input: the row unit on the initial
-    labels, the column unit on the row unit's output, and the tiled CCL,
-    each exactly against its plain version (and the CCL against B1);
-    CUDA-event times of kernel and plain."""
+    labels, the column unit on the row unit's output, and the tiled CCL
+    (the band CCL in grid mode), each exactly against its plain version
+    (and the CCL against B1); CUDA-event times of kernel and plain."""
     from repas_tpu_torch.kernels import ccl_cuda, ccl_tiled
 
     B, h, w = mask.shape
@@ -323,20 +421,24 @@ def check_b4(mask, iters):
             bad = int((got != ref).sum())
             raise AssertionError(f"B4 {name}: kernel differs from its plain "
                                  f"version at {bad} pixels")
-        out[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5, 1)}
+        out[name] = {"ms": cuda_ms(kern, queued=True),
+                     "plain_ms": cuda_ms(plain, 5, 1)}
     if not torch.equal(ccl_tiled.connected_components_tiled_cuda(mask, iters),
                        ccl_cuda.connected_components_cuda(mask, iters)):
         raise AssertionError("B4 tiled CCL differs from B1's labels")
+    plan = ccl_plan(mask, cluster_ok=False)
     log({"kernel": "B4 ccl_tiled", "input_shape": list(mask.shape),
          "iters": iters, "foreground_frac": float(mask.float().mean()),
-         "max_abs_err": 0.0, **{f"{k}_{m}": v[m] for k, v in out.items()
-                                for m in ("ms", "plain_ms")}})
-    return {"name": "B4 ccl_tiled", "route": "cuda",
-            "source": "repas_tpu_torch/kernels/csrc/ccl_tiled.cu",
-            "replaces": "repas_tpu/kernels/ccl_pallas.py:108",
-            "launches": 0, "max_abs_err": 0.0,
-            "ms": out["tiled_ccl"]["ms"],
-            "plain_ms": out["tiled_ccl"]["plain_ms"]}
+         "plan": plan, "max_abs_err": 0.0,
+         **{f"{k}_{m}": v[m] for k, v in out.items()
+            for m in ("ms", "plain_ms")}})
+    rec = record("B4 ccl_tiled", B4_SRC,
+                 (0.0, out["tiled_ccl"]["ms"], out["tiled_ccl"]["plain_ms"]),
+                 *ccl_cost(mask, iters), INT32_OPS_PER_S, NO_LIBRARY_CCL)
+    rec["plan"] = plan
+    rec["unit_source"] = "repas_tpu_torch/kernels/csrc/ccl_tiled.cu"
+    rec["unit_ms"] = {k: out[k] for k in ("rows", "columns")}
+    return rec
 
 
 def robust_phase(dev, gpu_line):

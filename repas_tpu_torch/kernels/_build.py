@@ -42,13 +42,16 @@ build_seconds = None    # wall time of this process's build, None if reused
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # mask, out, scratch, B, H, W, iters, device, stream
-    "repas_ccl": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # mask, out, aux, B, H, W, iters, cluster, band_rows, group, device,
+    # stream
+    "repas_ccl": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # W, device, int[4] out
+    "repas_ccl_limits": [_I, _I, _P],
+    # cluster, band_rows, W, device, int* out
+    "repas_ccl_max_clusters": [_I, _I, _I, _I, _P],
     # mask, labels, out, agg_v, agg_b, B, H, W, along_rows, chunk, device,
     # stream
     "repas_seg_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # mask, out, scratch, agg_v, agg_b, B, H, W, iters, chunk, device, stream
-    "repas_ccl_tiled": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # pyr, origins, out, B, C, Hp, W, ah, aw, device, stream
     "repas_patch_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # depth, rgb, K, scale, out, B, H, W, device, stream
@@ -144,12 +147,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def check(name: str, rc: int) -> None:
+    """Raise if C entry point `name` returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
+                           f"{library().repas_error_string(rc).decode()}")
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point `name` on `device`'s current stream; raise if
     the launch reported an error (cudaGetLastError after each launch)."""
-    lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, name)(*args, device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{lib.repas_error_string(rc).decode()}")
+    check(name, getattr(library(), name)(*args, device.index, stream))

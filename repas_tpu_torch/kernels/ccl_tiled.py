@@ -2,15 +2,18 @@
 
 Replaces the Pallas kernels of
 ``repas_tpu/kernels/ccl_pallas.py::_make_scan_kernel`` (the row-band and
-column-band calls of ``connected_components_pallas_tiled``) with
-``csrc/ccl_tiled.cu``. The unit (``seg_scan_axis_*``) takes a mask and
-any int32 labels and returns the forward then backward segmented
-min-scan along rows or columns, background reset to the sentinel H*W.
-The tiled CCL runs ``iters`` rounds of row unit, column unit and B1's
-8-neighbour stencil, as ``connected_components_pallas_tiled`` does; its
-labels equal B1's bit for bit. ``connected_components`` (ccl.py) sends
-masks over ``MAX_VMEM_PIXELS`` here. See the source's header for what
-bounds the kernel on the H100.
+column-band calls of ``connected_components_pallas_tiled``). The unit
+(``seg_scan_axis_*``, ``csrc/ccl_tiled.cu``) takes a mask and any int32
+labels and returns the forward then backward segmented min-scan along
+rows or columns, background reset to the sentinel H*W: the direct
+counterpart of ``_make_scan_kernel``. The tiled CCL runs ``iters`` rounds
+of row unit, column unit and the 8-neighbour stencil, as
+``connected_components_pallas_tiled`` does; on the card it is B1's
+band-resident kernel (``csrc/ccl.cu``) in grid mode, always: cooperative
+launches over groups of images, each band's labels in shared memory for
+all rounds, one launch per group. Its labels equal B1's bit for bit.
+``connected_components`` (ccl.py) sends masks over ``MAX_VMEM_PIXELS``
+here. See the sources' headers for what bounds the kernels on the H100.
 
 A CPU tensor goes through the plain versions below; a CUDA tensor
 launches the kernel or raises.
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repas_tpu_torch.kernels import _build
+from repas_tpu_torch.kernels import _build, ccl_cuda
 from repas_tpu_torch.kernels.ccl import _neighbor_min, _seg_min_scan
 
 # rows per chunk of the column unit's three-pass scan
@@ -66,15 +69,10 @@ def connected_components_tiled_plain(mask: torch.Tensor, iters: int = 5
 
 
 def _check_mask(name: str, mask: torch.Tensor) -> None:
-    if not mask.is_cuda:
-        raise ValueError(f"{name}: mask must be a CUDA tensor")
-    if mask.dtype != torch.bool or mask.ndim != 3:
-        raise ValueError(f"{name}: needs a (B,H,W) bool mask, got "
-                         f"{tuple(mask.shape)} {mask.dtype}")
-    B, h, w = mask.shape
-    if h * w >= 2 ** 31 - 1 or B > 65535 or -(-h // COL_CHUNK) > 65535:
+    ccl_cuda.check_mask(name, mask, 1)
+    if -(-mask.shape[1] // COL_CHUNK) > 65535:
         raise ValueError(f"{name}: shape {tuple(mask.shape)} out of range "
-                         "(H*W must fit int32, B and H/16 at most 65535)")
+                         f"(H/{COL_CHUNK} at most 65535)")
 
 
 def _aggregates(mask: torch.Tensor):
@@ -109,19 +107,11 @@ def seg_scan_axis_cuda(mask: torch.Tensor, labels: torch.Tensor,
 
 def connected_components_tiled_cuda(mask: torch.Tensor, iters: int = 5
                                     ) -> torch.Tensor:
-    """Tiled CCL on the card: (B,H,W) bool mask -> (B,H,W) int32 labels."""
-    _check_mask("connected_components_tiled_cuda", mask)
-    if iters < 1:
-        raise ValueError(f"connected_components_tiled_cuda: iters={iters} "
-                         "< 1")
-    B, h, w = mask.shape
-    mask = mask.contiguous()
-    out = torch.empty((B, h, w), dtype=torch.int32, device=mask.device)
-    scratch = torch.empty_like(out)
-    agg_v, agg_b = _aggregates(mask)
-    _build.launch("repas_ccl_tiled", mask.device, mask.data_ptr(),
-                  out.data_ptr(), scratch.data_ptr(), agg_v.data_ptr(),
-                  agg_b.data_ptr(), B, h, w, iters, COL_CHUNK)
+    """Tiled CCL on the card: (B,H,W) bool mask -> (B,H,W) int32 labels,
+    the band CCL in grid mode."""
+    ccl_cuda.check_mask("connected_components_tiled_cuda", mask, iters)
+    out = ccl_cuda.run_plan(mask, iters,
+                            ccl_cuda.plan_for(mask, cluster_ok=False))
     _build.launches["ccl_tiled"] += 1
     return out
 

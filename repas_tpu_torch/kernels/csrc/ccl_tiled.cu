@@ -1,44 +1,38 @@
-// Kernel B4: forward + backward segmented min-scan of a batch of label
-// images along rows or along columns, and the connected-component labels
-// of masks too large for B1's one-shot formulation, built from it.
+// Kernel B4's unit: forward + backward segmented min-scan of a batch of
+// label images along rows or along columns.
 //
-// Replaces the Pallas kernels of
-// repas_tpu/kernels/ccl_pallas.py::_make_scan_kernel (the row-band and
-// column-band calls of connected_components_pallas_tiled). The unit takes
-// (mask, labels) and returns, along the chosen axis, the inclusive
-// segmented running min forward, then backward over that result, with
-// background reset to the sentinel H*W. A background pixel starts a
-// segment with its own input label (the reference's combine keeps it), and
-// a segment that reaches the image edge also takes the sentinel, so the
-// unit gives the reference's bits on any input labels, not only on the
-// CCL's. Per round the tiled CCL runs the row unit, the column unit and
-// B1's 8-neighbour stencil (ccl.cu), the fixed-round Jacobi structure of
-// the reference; min is exact and associative, so the labels are bit for
-// bit those of the reference, converged or not.
+// Replaces the Pallas kernel repas_tpu/kernels/ccl_pallas.py::
+// _make_scan_kernel (the row-band and column-band calls of
+// connected_components_pallas_tiled). The unit takes (mask, labels) and
+// returns, along the chosen axis, the inclusive segmented running min
+// forward, then backward over that result, with background reset to the
+// sentinel H*W. A background pixel starts a segment with its own input
+// label (the reference's combine keeps it), and a segment that reaches the
+// image edge also takes the sentinel, so the unit gives the reference's
+// bits on any input labels, not only on the CCL's. The tiled CCL that the
+// reference builds from this unit is, on the card, the band-resident CCL
+// of ccl.cu in grid mode (one cooperative launch per group of images);
+// the unit stays as the direct counterpart of the Pallas kernel.
 //
 // Bound on the H100: dependent memory latency. At the robust ladder's
 // shapes the batch is small (2-4 images) and the images large (720x1280,
-// 3.7 MB of labels each, L2-resident). One thread per column, as B1's
-// column pass does, would give 5,120 threads at (4,720,1280), each
-// walking 1,440 dependent loads: far too few threads for 132 SMs. So the
-// column unit cuts every column into chunks of `chunk` rows: a chunk-local
-// segmented scan writes each chunk's (running min, saw-a-break) aggregate,
-// a carry pass walks the aggregates of each column, and an apply pass
-// folds the carry into each chunk's prefix up to its first background
-// pixel. Neighbouring threads take neighbouring columns, so every load is
-// coalesced. The row unit is B1's row pass (ccl.cu), a warp-per-row
-// shuffle scan (a row is contiguous), which takes any input labels. 3
-// launches per direction of the column unit.
+// 3.7 MB of labels each, L2-resident). One thread per column would give
+// 5,120 threads at (4,720,1280), each walking 1,440 dependent loads: far
+// too few threads for 132 SMs. So the column unit cuts every column into
+// chunks of `chunk` rows: a chunk-local segmented scan writes each chunk's
+// (running min, saw-a-break) aggregate, a carry pass walks the aggregates
+// of each column, and an apply pass folds the carry into each chunk's
+// prefix up to its first background pixel. Neighbouring threads take
+// neighbouring columns, so every load is coalesced. The row unit is the
+// warp-per-row shuffle scan of ccl.cu (a row is contiguous), which takes
+// any input labels. 3 launches per direction of the column unit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// B1's row pass and 8-neighbour min stencil (ccl.cu), launched on the
-// caller's device
+// the row pass (ccl.cu), launched on the caller's device
 extern "C" int repas_ccl_rows(const void* mask, const void* src, void* dst,
                               int B, int H, int W, void* stream);
-extern "C" int repas_ccl_stencil(const void* mask, const void* src, void* dst,
-                                 int B, int H, int W, void* stream);
 
 namespace {
 
@@ -153,33 +147,4 @@ extern "C" int repas_seg_scan(const void* mask, const void* labels, void* out,
   if (along_rows) return repas_ccl_rows(mask, labels, out, B, H, W, stream);
   return (int)scan_cols(m, (const int*)labels, (int*)out, (int*)agg_v,
                         (uint8_t*)agg_b, B, H, W, chunk, s);
-}
-
-// The tiled CCL: `iters` rounds of row unit, column unit, stencil, the
-// label image ping-ponging between out and scratch so the last stencil
-// lands in out.
-extern "C" int repas_ccl_tiled(const void* mask, void* out, void* scratch,
-                               void* agg_v, void* agg_b, int B, int H, int W,
-                               int iters, int chunk, int device,
-                               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* m = (const uint8_t*)mask;
-  int* cur = (iters % 2 == 0) ? (int*)out : (int*)scratch;
-  int* other = (cur == (int*)out) ? (int*)scratch : (int*)out;
-  for (int it = 0; it < iters; ++it) {
-    int rc = repas_ccl_rows(mask, it == 0 ? nullptr : cur, cur, B, H, W,
-                            stream);
-    if (rc != 0) return rc;
-    if ((err = scan_cols(m, cur, cur, (int*)agg_v, (uint8_t*)agg_b, B, H, W,
-                         chunk, s)) != cudaSuccess)
-      return (int)err;
-    rc = repas_ccl_stencil(mask, cur, other, B, H, W, stream);
-    if (rc != 0) return rc;
-    int* t = cur;
-    cur = other;
-    other = t;
-  }
-  return (int)cudaGetLastError();
 }

@@ -5,6 +5,7 @@ versions, on the card.
 Marked ``cuda``: they skip where torch sees no CUDA device. On a machine
 with a card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 Tolerances: B1, B2 and B4 exact; B3 rtol 1e-6 (same formula, same order).
+A mask density of -1 makes an all-foreground mask, 1 an all-background one.
 """
 import numpy as np
 import pytest
@@ -32,6 +33,11 @@ def dev():
     ((2, 720, 1280), 0.5, 5),        # full resolution, through B1
     ((3, 37, 53), 0.4, 1),           # odd sizes, partial warps
     ((1, 64, 33), 0.3, 4),
+    ((8, 360, 640), 0.55, 5),        # the ladder's stage A
+    ((1, 724, 724), 0.5, 5),         # a cluster over 8 (non-portable)
+    ((16, 360, 640), -1.0, 5),       # all foreground
+    ((16, 360, 640), 1.0, 5),        # all background
+    ((12, 720, 1280), 0.5, 5),       # several grid groups
 ])
 def test_ccl_kernel_matches_plain(dev, shape, density, iters):
     rng = np.random.default_rng(0)
@@ -72,6 +78,11 @@ def test_seg_scan_kernel_matches_plain_on_any_labels(dev, shape, density,
     ((2, 720, 1280), 0.5, 5),
     ((1, 1025, 517), 0.45, 3),
     ((3, 40, 33), 0.4, 1),
+    ((8, 360, 640), 0.55, 5),
+    ((1, 724, 724), 0.5, 5),
+    ((4, 720, 1280), -1.0, 5),       # all foreground
+    ((4, 720, 1280), 1.0, 5),        # all background
+    ((12, 720, 1280), 0.5, 5),       # several grid groups
 ])
 def test_tiled_ccl_matches_b1_and_plain(dev, shape, density, iters):
     rng = np.random.default_rng(4)
@@ -84,6 +95,20 @@ def test_tiled_ccl_matches_b1_and_plain(dev, shape, density, iters):
     assert torch.equal(got, b1)
     assert torch.equal(got, ccl_tiled.connected_components_tiled_plain(
         mask, iters))
+
+
+def test_band_ccl_refused_launch_raises(dev):
+    """A launch the card refuses raises in the wrapper: a cooperative
+    launch of more bands than the SMs hold, a cluster over 16 CTAs."""
+    mask = torch.ones((64, 720, 64), dtype=torch.bool, device=dev)
+    too_many = ccl_cuda.BandPlan("grid", 0, 1, 720, 64, 1,
+                                 ccl_cuda.band_smem(1, 64, False))
+    with pytest.raises(RuntimeError, match="repas_ccl"):
+        ccl_cuda.run_plan(mask, 1, too_many)
+    too_wide = ccl_cuda.BandPlan("cluster", 32, 23, 32, 64, 1,
+                                 ccl_cuda.band_smem(23, 64, True))
+    with pytest.raises(RuntimeError, match="repas_ccl"):
+        ccl_cuda.run_plan(mask, 1, too_wide)
 
 
 def test_connected_components_dispatch_on_card(dev):
