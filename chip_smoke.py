@@ -17,8 +17,9 @@
    in cluster mode, cudaOccupancyMaxActiveClusters;
 4. resets the launch counts, runs the pipeline with synchronizing CUDA
    calls turned into errors (the step must not wait for the device),
-   reads the counts, checks the results (tag 9 in every frame, depth-corrected z within 5 mm of
-   0.45 m, one frame equal to the port's CPU result) and times it;
+   reads the counts, checks the results (tag 9 in every frame,
+   depth-corrected z within 5 mm of 0.45 m, one frame equal to the
+   port's CPU result) and times it;
 5. the robust phase: the staged detection ladder
    (repas_tpu_torch.detect.robust.detect_tags_robust_staged) and
    best-order PnP on the best slot of each of 8 synthetic 720p frames
@@ -31,7 +32,20 @@
    than one per wave test), reads the counts (B1, B2 and B4 launched),
    checks ids, poses and two frames against the port's CPU run, times
    it, and runs detect_tags_robust on one frame (B4 launched there too);
-6. prints one JSON line of kernel results, then, last, one JSON line
+6. the calibrated_tracking phase: (a) tests/test_distortion.py's scene
+   rendered through its lens, 16 noisy 720p frames, through the pipeline
+   with the coefficients (sync-error mode; B1-B3 launched; every frame
+   within 1 mm and 0.3 degrees of the truth; over 3 mm off without the
+   coefficients; frame 0 as on the CPU) and without a cloud (no B3);
+   (b) the register-then-track streamer (repas_tpu_torch.pose.track)
+   over 35 noisy 720p frames: B1 and B2 held exactly against their plain
+   versions at the register and track shapes, then the counted stream
+   (modes register, track, lost within the miss budget, register again;
+   3.5 mm from the truth; B1 and B2 once per track step; one device read
+   per step), the stages' times, one robust registration; (c) the tag
+   bundle's SQPnP on the card against the CPU; (d) depth-to-color
+   alignment and NV12/YUYV decoding at 720p against the CPU;
+7. prints one JSON line of kernel results, then, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -83,6 +97,24 @@ ROBUST_K = np.array([[912.35, 0, 628.78], [0, 911.78, 348.98], [0, 0, 1.0]],
 ROBUST_IDS = [9, 16, 9, 16, 9, 16, 16, None]     # best-slot id per frame
 ROBUST_FOUND_A = [True] * 4 + [False] * 2 + [True, False]
 ROBUST_STEPS = 5
+
+# calibrated phase: tests/test_distortion.py's scene (f = 740, checkerboard
+# size coefficients, tag 5 of 0.0909 m), batch 16
+DIST_K = np.array([[740.0, 0, 640], [0, 740.0, 360], [0, 0, 1.0]], np.float32)
+DIST = np.array([-0.24, 0.095, 0.0012, -0.0008, 0.018], np.float32)
+DIST_TAG, DIST_TAG_ID = 0.0303 * 3, 5
+DIST_RVEC = (0.25, -0.2, 0.1)
+DIST_T = np.array([0.08, 0.05, 0.55], np.float32)
+# tracker stream: the bench intrinsics, a 60 mm tag 9 tilted as in
+# tests/test_track.py, 30 frames of motion, 2 blank frames, then the tag
+# far from the old ROI for 3 frames (default TrackerConfig: 3 misses)
+TRACK_TAG, TRACK_TAG_ID = 0.06, 9
+TRACKER_ROI = 256                  # TrackerConfig().roi
+TRACK_RVEC = (0.2, -0.15, 0.05)
+TRACK_MOTION = 30
+TRACK_FAR_T = np.array([-0.15, 0.1, 0.6], np.float32)
+TRACK_MODES = (["register"] + ["track"] * (TRACK_MOTION - 1)
+               + ["lost"] * 3 + ["register", "track"])
 
 
 def log(obj) -> None:
@@ -142,6 +174,100 @@ def robust_frames(seed: int = 0):
     f = np.stack(imgs) + rng.integers(-8, 8, (ROBUST_BATCH, H, W))
     return np.repeat(np.clip(f, 0, 255)[..., None], 3, axis=-1).astype(
         np.uint8)
+
+
+def render_window(tag_id, R, t, K, tag, size, dist=None, supersample=3):
+    """(H,W) float32 gray frame holding one posed tag on a 180 background,
+    rendered only in the size x size window around the tag's projected
+    center, through the intrinsics shifted to that window: the same rays
+    as a full-frame render at a tenth of its host time."""
+    from repas_tpu_torch.detect.render import render_tag_in_scene
+
+    c = K.astype(np.float64) @ t
+    left = int(np.clip(round(c[0] / c[2] - size / 2), 0, W - size))
+    top = int(np.clip(round(c[1] / c[2] - size / 2), 0, H - size))
+    Kw = K.copy()
+    Kw[0, 2] -= left
+    Kw[1, 2] -= top
+    win = render_tag_in_scene(tag_id, R, t, Kw, tag, (size, size),
+                              supersample=supersample, dist=dist)
+    edges = np.concatenate([win[[0, -1]].ravel(), win[:, [0, -1]].ravel()])
+    if not (edges == 180.0).all():
+        raise AssertionError(f"tag {tag_id} at {t} overflows its window")
+    img = np.full((H, W), 180.0, np.float32)
+    img[top:top + size, left:left + size] = win
+    return img
+
+
+def noisy_rgb(grays, seed=0):
+    """Gray frames (N,H,W) + integer noise in [-8, 8) from `seed` ->
+    (N,H,W,3) uint8 RGB."""
+    rng = np.random.default_rng(seed)
+    f = np.clip(grays + rng.integers(-8, 8, grays.shape), 0, 255)
+    return np.repeat(f[..., None], 3, axis=-1).astype(np.uint8)
+
+
+def rotation(rvec):
+    from repas_tpu_torch.core.transforms import rodrigues
+    return rodrigues(torch.tensor(rvec, dtype=torch.float32)).numpy()
+
+
+def angle_deg(Ra, Rb):
+    """Angle of Ra^T Rb, atan2(|sin|, cos) in float64."""
+    Rr = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    w = np.array([Rr[2, 1] - Rr[1, 2], Rr[0, 2] - Rr[2, 0],
+                  Rr[1, 0] - Rr[0, 1]]) / 2
+    return float(np.degrees(np.arctan2(np.linalg.norm(w),
+                                       (np.trace(Rr) - 1) / 2)))
+
+
+def distorted_frames(batch):
+    """tests/test_distortion.py's scene rendered through the lens, `batch`
+    noisy copies: (rgbs (B,H,W,3) uint8, depths (B,H,W) u16, R, t)."""
+    R = rotation(DIST_RVEC)
+    gray = render_window(DIST_TAG_ID, R, DIST_T, DIST_K, DIST_TAG, 330,
+                         dist=DIST)
+    rgbs = noisy_rgb(np.stack([gray] * batch))
+    depths = np.full((batch, H, W), int(DIST_T[2] * 1000), np.uint16)
+    return rgbs, depths, R, DIST_T
+
+
+def pose_errors(out, R, t):
+    """Per frame, the error of the tag's slot against the truth:
+    (t error mm, R error deg), or raises if a frame lost the tag."""
+    ids = out.detections.ids.cpu().numpy()
+    Rs, ts = out.pose.R.cpu().numpy(), out.pose.t.cpu().numpy()
+    terr, rerr = [], []
+    for b in range(ids.shape[0]):
+        hit = np.flatnonzero(ids[b] == DIST_TAG_ID)
+        if not hit.size:
+            raise AssertionError(f"frame {b}: tag {DIST_TAG_ID} not "
+                                 f"detected: {ids[b].tolist()}")
+        i = hit[0]
+        terr.append(float(np.linalg.norm(ts[b, i] - t)) * 1000)
+        rerr.append(angle_deg(R, Rs[b, i]))
+    return terr, rerr
+
+
+def tracker_stream():
+    """(frames (N,H,W,3) uint8, truth t per frame or None): the tag moves
+    3, 2 and 2 mm per frame in x, y, z around 0.5 m for TRACK_MOTION
+    frames, two blank frames follow, then it reappears far from the old
+    ROI for three frames. Noise in [-8, 8) from seed 0."""
+    R = rotation(TRACK_RVEC)
+    truth = [np.array([-0.03 + 0.003 * i, 0.02 - 0.002 * i, 0.5 + 0.002 * i],
+                      np.float32) for i in range(TRACK_MOTION)]
+    truth += [None, None] + [TRACK_FAR_T] * 3
+    grays = np.stack([np.full((H, W), 180.0, np.float32) if t is None
+                      else render_window(TRACK_TAG_ID, R, t, ROBUST_K,
+                                         TRACK_TAG, 300)
+                      for t in truth])
+    return noisy_rgb(grays), truth
+
+
+def sync_warnings(caught):
+    return [str(w.message) for w in caught
+            if "synchroniz" in str(w.message).lower()]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3,
@@ -299,6 +425,7 @@ def check_b1(name, mask, iters):
         lambda: ccl.connected_components_plain(mask, iters), iters=iters,
         plan=plan), *ccl_cost(mask, iters), INT32_OPS_PER_S, NO_LIBRARY_CCL)
     rec["plan"] = plan
+    rec["input_shape"] = list(mask.shape)
     return rec
 
 
@@ -309,12 +436,14 @@ def check_b2(name, pyr, origins, ah, aw):
               + origins.numel() * origins.element_size()
               + origins.shape[0] * origins.shape[1] * ah * aw
               * pyr.element_size())
-    return record(name, B2_SRC, hold(
+    rec = record(name, B2_SRC, hold(
         name, pyr.shape,
         lambda: patch_extract.extract_windows(pyr, origins, ah, aw),
         lambda: patch_extract.extract_windows_plain(pyr, origins, ah, aw),
         windows=list(origins.shape[:-1]), window=[ah, aw]), nbytes, 0,
         F32_OPS_PER_S, NO_LIBRARY_B2)
+    rec["input_shape"] = list(pyr.shape)
+    return rec
 
 
 def check_kernels(captured):
@@ -574,6 +703,357 @@ def robust_phase(dev, gpu_line):
     return records
 
 
+def host_ms(fn, reps):
+    """Host-clock ms of each of `reps` synchronized calls of fn."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def distorted_pipeline(dev, gpu_line):
+    """The 720p pipeline at batch 16 with the lens's coefficients, as
+    tensors on the card, under sync-error mode: B1-B3 launched, every
+    frame within 1 mm and 0.3 degrees of the truth, more than 3 mm off
+    without the coefficients, frame 0 as on the CPU; then without a
+    cloud (no B3)."""
+    from repas_tpu_torch import pipeline
+    from repas_tpu_torch.core.config import PipelineConfig, PnPConfig
+    from repas_tpu_torch.kernels import _build
+
+    rgbs_np, depths_np, R, t = distorted_frames(BATCH)
+    rgbs = torch.from_numpy(rgbs_np).to(dev)
+    depths = torch.from_numpy(depths_np).to(dev)
+    K = torch.from_numpy(DIST_K).to(dev)
+    dist = torch.from_numpy(DIST).to(dev)
+    cfg = PipelineConfig(pnp=PnPConfig(tag_size_m=DIST_TAG))
+
+    def step(**kw):
+        return pipeline.process_frames(rgbs, depths, K, cfg, **kw)
+
+    step(dist=dist)                        # warm-up: cached constants
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(dist=dist)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    missing = [k for k in ("ccl", "patch_extract", "pointcloud")
+               if counts[k] < 1]
+    if missing:
+        raise AssertionError(f"distorted pipeline never launched {missing}")
+    terr, rerr = pose_errors(out, R, t)
+    if max(terr) >= 1.0 or max(rerr) >= 0.3:
+        raise AssertionError(f"with dist: t errors {terr} mm, R errors "
+                             f"{rerr} deg")
+    bare = step()
+    terr0, rerr0 = pose_errors(bare, R, t)
+    if min(terr0) <= 3.0:
+        raise AssertionError(f"without dist the pose is within 3 mm: "
+                             f"{terr0}")
+
+    cpu = pipeline.process_frames(torch.from_numpy(rgbs_np[:1]),
+                                  torch.from_numpy(depths_np[:1]), DIST_K,
+                                  cfg, dist=DIST)
+    d, c = out.detections, cpu.detections
+    if not (torch.equal(d.ids[0].cpu(), c.ids[0])
+            and torch.equal(d.valid[0].cpu(), c.valid[0])):
+        raise AssertionError(f"frame 0 on the card vs CPU: ids "
+                             f"{d.ids[0].tolist()} vs {c.ids[0].tolist()}")
+    v = c.valid[0]
+    corner_err = float((d.corners[0].cpu() - c.corners[0]).abs()[v].max())
+    t_err = float((out.pose.t[0].cpu() - cpu.pose.t[0]).abs()[v].max())
+    r_err = max(angle_deg(a, b) for a, b in zip(
+        out.pose.R[0].cpu()[v].numpy(), cpu.pose.R[0][v].numpy()))
+    if corner_err > 0.05 or t_err > 1e-4 or r_err > 0.25:
+        raise AssertionError(f"frame 0 vs CPU: corners {corner_err} px, t "
+                             f"{t_err} m, R {r_err} deg")
+
+    _build.reset_launches()
+    nocloud = step(dist=dist, with_pointcloud=False)
+    torch.cuda.synchronize()
+    if _build.launches["pointcloud"] != 0 or \
+            tuple(nocloud.pointcloud.shape) != (BATCH, 6, 0):
+        raise AssertionError(f"with_pointcloud=False: B3 launches "
+                             f"{_build.launches['pointcloud']}, cloud "
+                             f"{tuple(nocloud.pointcloud.shape)}")
+    step_ms = host_ms(lambda: step(dist=dist), STEPS)
+    bare_ms = host_ms(lambda: step(dist=dist, with_pointcloud=False), STEPS)
+    med = float(np.median(step_ms))
+    log({"phase": "distorted_pipeline", "batch": BATCH, "launches": counts,
+         "t_err_mm": terr, "R_err_deg": rerr, "t_err_mm_without_dist": terr0,
+         "frame0_vs_cpu": {"corner_px": corner_err, "t_m": t_err,
+                           "R_deg": r_err},
+         "step_ms_median": med, "step_ms_all": step_ms,
+         "frames_per_s": BATCH * 1e3 / med,
+         "no_cloud_step_ms_median": float(np.median(bare_ms)),
+         "gpu": gpu_line})
+
+
+def tracker_split(tr, frame):
+    """Median host ms of a tracking tracker's stages on `frame`, each
+    synchronized alone: the ROI detector and the LM of a track step, the
+    full-frame detector and IPPE of a registration."""
+    from repas_tpu_torch.detect.detector import detect_tags
+    from repas_tpu_torch.pose.pnp import (refine_pnp_gn,
+                                          solve_pnp_ippe_square,
+                                          square_object_points)
+
+    img = torch.from_numpy(frame).to(tr.device)
+    u0, v0 = tr._predict_roi_origin(img.shape, TRACKER_ROI)
+    roi = img[None, v0:v0 + TRACKER_ROI, u0:u0 + TRACKER_ROI]
+    obj = square_object_points(tr.tag_size, tr.device)
+    corners = detect_tags(img[None], tr.det_cfg).corners[0, 0]
+
+    def lm():
+        refine_pnp_gn(obj, corners, tr._rvec, tr._tvec, tr.K, tr.dist,
+                      iters=tr.cfg.gn_iters)
+
+    stages = {
+        "track_detect_ms": lambda: detect_tags(roi, tr.roi_cfg),
+        "track_lm_ms": lm,
+        "register_detect_ms": lambda: detect_tags(img[None], tr.det_cfg),
+        "register_ippe_ms": lambda: solve_pnp_ippe_square(
+            corners, tr.K, tr.tag_size, dist=tr.dist),
+    }
+    return {k: float(np.median(host_ms(fn, 5))) for k, fn in stages.items()}
+
+
+def tracker_phase(dev, gpu_line, records):
+    """The register-then-track streamer on 1280x720 frames: B1 and B2
+    held exactly against their plain versions at the register and track
+    shapes, then a counted stream (modes, truth, launches and syncs per
+    step), then one robust registration. Appends the tracker-shape
+    kernel records; adds the track step's launches and times to the main
+    path's B1 and B2 records."""
+    from repas_tpu_torch.kernels import _build, ccl_cuda, patch_extract
+    from repas_tpu_torch.pose.track import TagTracker, TrackerConfig
+
+    frames, truth = tracker_stream()
+
+    def tracker(**kw):
+        return TagTracker(ROBUST_K, tag_size=TRACK_TAG, device=dev, **kw)
+
+    # warm-up on the first frames, recording B1's and B2's first input at
+    # the register and the track shapes
+    with Capture(ccl_cuda, "connected_components_cuda", True) as c1, \
+            Capture(patch_extract, "extract_windows", True) as c2:
+        tr = tracker()
+        for f in frames[:3]:
+            tr.step(f)
+        torch.cuda.synchronize()
+    def step_of(shape):      # the ROI step runs on 256 px wide inputs
+        return "track" if shape[-1] == TRACKER_ROI else "register"
+
+    new = [check_b1(f"B1 ccl (tracker {step_of(a[0].shape)} "
+                    f"{tuple(a[0].shape)})", *a) for a, _ in c1.calls]
+    new += [check_b2(f"B2 patch_extract (tracker {step_of(a[0].shape)} "
+                     f"{tuple(a[0].shape)}, {a[2]}x{a[3]} windows)", *a)
+            for a, _ in c2.calls]
+    shapes = sorted(tuple(a[0].shape) for a, _ in c1.calls)
+    if shapes != [(1, 256, 256), (1, 360, 640)]:
+        raise AssertionError(f"tracker B1 shapes {shapes}")
+
+    # the stream, counted: modes, truth, launches and syncs per step
+    tr = tracker()
+    steps = []
+    for f, t in zip(frames, truth):
+        before = dict(_build.launches)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                res = tr.step(f)
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        steps.append({
+            "mode": res.mode, "ok": bool(res.ok), "ms": ms,
+            "syncs": len(sync_warnings(caught)),
+            "t_err_mm": (float(np.linalg.norm(res.t - t)) * 1000
+                         if res.ok else None),
+            **{k: _build.launches[k] - before[k]
+               for k in ("ccl", "patch_extract")}})
+    modes = [s["mode"] for s in steps]
+    if modes != TRACK_MODES:
+        raise AssertionError(f"tracker modes {modes}")
+    bad = [(i, s["t_err_mm"]) for i, s in enumerate(steps)
+           if s["ok"] and s["t_err_mm"] >= 3.5]
+    if bad or not all(s["ok"] for s, m in zip(steps, modes) if m != "lost"):
+        raise AssertionError(f"tracker t errors over 3.5 mm: {bad}")
+    track = [s for s in steps if s["mode"] == "track"]
+    if any(s["ccl"] != 1 or s["patch_extract"] != 1 for s in track):
+        raise AssertionError(
+            "B1/B2 not launched once on every track step: "
+            f"{[(s['ccl'], s['patch_extract']) for s in track]}")
+    # one device read per step: the track step's, the registration's,
+    # and both where a failed track step falls back to registration
+    if max(s["syncs"] for s in track) > 1 or \
+            max(s["syncs"] for s in steps) > 2:
+        raise AssertionError(f"tracker steps synchronized "
+                             f"{[s['syncs'] for s in steps]} times")
+    reg_ms = float(np.median([s["ms"] for s in steps
+                              if s["mode"] == "register"]))
+    track_ms = float(np.median([s["ms"] for s in track]))
+    log({"phase": "tracker", "frames": len(frames), "modes": modes,
+         "t_err_mm": [s["t_err_mm"] for s in steps],
+         "syncs": [s["syncs"] for s in steps],
+         "launches_ccl": [s["ccl"] for s in steps],
+         "launches_patch_extract": [s["patch_extract"] for s in steps],
+         "register_ms_median": reg_ms, "track_ms_median": track_ms,
+         "track_ms_all": [s["ms"] for s in track],
+         "tracked_frames_per_s": 1e3 / track_ms, "gpu": gpu_line})
+
+    log({"phase": "tracker_split", **tracker_split(tr, frames[-1]),
+         "gpu": gpu_line})
+
+    counts = {"ccl": sum(s["ccl"] for s in steps),
+              "patch_extract": sum(s["patch_extract"] for s in steps)}
+    for rec in new:
+        rec["launches"] = counts["ccl" if rec["name"][:2] == "B1"
+                                 else "patch_extract"]
+    track_b1, track_b2 = (next(r for r in new if r["name"].startswith(k)
+                               and "tracker track" in r["name"])
+                          for k in ("B1", "B2"))
+    for rec in (track_b1, track_b2):
+        rec["launches_per_track_step"] = 1
+    for rec in records:
+        if rec["name"] in ("B1 ccl", "B2 patch_extract"):
+            tr_rec = track_b1 if rec["name"][:2] == "B1" else track_b2
+            rec["track_launches_per_step"] = 1
+            rec["track_ms"] = tr_rec["ms"]
+            rec["track_shape"] = tr_rec["input_shape"]
+
+    # one registration through the robust ladder (B1, B2 and B4)
+    _build.reset_launches()
+    rtr = tracker(config=TrackerConfig(robust_register=True))
+    res = rtr.step(frames[0])
+    torch.cuda.synchronize()
+    rcounts = dict(_build.launches)
+    err = float(np.linalg.norm(res.t - truth[0])) * 1000
+    if res.mode != "register" or not res.ok or err >= 3.5 \
+            or rcounts["ccl_tiled"] < 1:
+        raise AssertionError(f"robust registration: {res.mode} ok {res.ok} "
+                             f"t err {err} mm, launches {rcounts}")
+    log({"phase": "tracker_robust_register", "t_err_mm": err,
+         "tag_id": res.tag_id, "launches": rcounts})
+    return new
+
+
+def bundle_phase(dev, gpu_line):
+    """solve_tag_bundle on a 3-tag planar layout with one masked slot
+    (tests/test_pnp.py's construction) on the card against the CPU port:
+    R within 0.01 degrees, t within 0.1 mm; ms per call and syncs."""
+    from repas_tpu_torch.kernels.project import project_points
+    from repas_tpu_torch.pose.bundle import solve_tag_bundle
+
+    K = torch.from_numpy(ROBUST_K)
+    rvec = torch.tensor([0.21, -0.3, 0.08])
+    t = torch.tensor([0.05, -0.03, 0.7])
+    centers = torch.tensor([[0.0, 0.0, 0.0], [0.12, 0.0, 0.0],
+                            [0.0, 0.10, 0.0], [9.9, 9.9, 0.0]])
+    h = TRACK_TAG / 2
+    offs = torch.tensor([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]])
+    corners = project_points(centers[:, None] + offs, rvec, t, K)
+    cpx = project_points(centers, rvec, t, K)
+    corners[3] = 0.0                          # the masked slot: garbage
+    cpx[3] = 0.0
+    valid = torch.tensor([True, True, True, False])
+    args = (corners, cpx, valid, centers)
+    R_c, t_c, e_c = solve_tag_bundle(*args, TRACK_TAG, K)
+    on_dev = [a.to(dev) for a in args]
+    Kd = K.to(dev)
+    solve_tag_bundle(*on_dev, TRACK_TAG, Kd)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            R_g, t_g, e_g = solve_tag_bundle(*on_dev, TRACK_TAG, Kd)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sync_warnings(caught)
+    r_err = angle_deg(R_g.cpu().numpy(), R_c.numpy())
+    t_err = float((t_g.cpu() - t_c).abs().max())
+    if r_err > 0.01 or t_err > 1e-4 or float(e_g) > 0.05:
+        raise AssertionError(f"bundle on the card vs CPU: R {r_err} deg, t "
+                             f"{t_err} m, error {float(e_g)} px")
+    ms = host_ms(lambda: solve_tag_bundle(*on_dev, TRACK_TAG, Kd), 5)
+    log({"phase": "bundle", "R_vs_cpu_deg": r_err, "t_vs_cpu_m": t_err,
+         "err_px": float(e_g), "syncs_per_call": len(syncs),
+         "sync_messages": sorted(set(syncs))[:4],
+         "ms_median": float(np.median(ms)), "ms_all": ms, "gpu": gpu_line})
+
+
+def front_end_phase(dev, gpu_line):
+    """Depth-to-color alignment (640x576 plane with a box onto 1280x720
+    under a small extrinsic) and NV12/YUYV at 1280x720, each on the card
+    against the CPU port: alignment equal on all but 1e-3 of the pixels
+    (a projection within an ulp of an integer column or row may floor to
+    the other side), YUV within one level on 0.05 % of the values."""
+    from repas_tpu_torch.kernels.align import align_depth_to_color
+    from repas_tpu_torch.kernels.color import (frame_to_rgb, nv12_to_rgb,
+                                               yuyv_to_rgb)
+
+    y, x = np.mgrid[0:576, 0:640]
+    depth = (0.9 + 0.0004 * x + 0.0002 * y).astype(np.float32)
+    depth[200:380, 250:420] -= 0.25
+    depth[::37, ::41] = 0.0
+    Kd = np.array([[504.0, 0, 320.5], [0, 504.3, 288.2], [0, 0, 1]],
+                  np.float32)
+    a = np.radians(1.15)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]], np.float32)
+    t = np.array([0.032, 0.001, -0.002], np.float32)
+    args = [torch.from_numpy(v) for v in (Kd, ROBUST_K, R, t)]
+    cpu = align_depth_to_color(torch.from_numpy(depth), *args, (H, W))
+    dd = torch.from_numpy(depth).to(dev)
+    dargs = [v.to(dev) for v in args]
+    gpu = align_depth_to_color(dd, *dargs, (H, W)).cpu()
+    differ = float((gpu != cpu).float().mean())
+    if differ > 1e-3 or float((cpu > 0).float().mean()) < 0.5:
+        raise AssertionError(f"alignment on the card differs from the CPU "
+                             f"at {differ} of the pixels")
+    align_ms = cuda_ms(lambda: align_depth_to_color(dd, *dargs, (H, W)))
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, fn, shape in (("nv12", nv12_to_rgb, (H * 3 // 2, W)),
+                            ("yuyv", yuyv_to_rgb, (H, 2 * W))):
+        buf = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+        bd = buf.to(dev)
+        diff = (fn(bd).cpu().int() - fn(buf).int()).abs()
+        share = float((diff > 0).float().mean())
+        if int(diff.max()) > 1 or share > 5e-4:
+            raise AssertionError(f"{name} on the card vs CPU: max "
+                                 f"{int(diff.max())} levels on {share}")
+        host = frame_to_rgb(buf.numpy().reshape(-1), name, W, H)
+        if not np.array_equal(host, fn(bd).cpu().numpy()):
+            raise AssertionError(f"frame_to_rgb({name}) differs")
+        out[name] = {"differ_share": share,
+                     "ms": cuda_ms(lambda: fn(bd))}
+    log({"phase": "front_end", "align_differ_share": differ,
+         "align_ms": align_ms, "align_valid_share":
+         float((cpu > 0).float().mean()), **out, "gpu": gpu_line})
+
+
+def calibrated_tracking_phase(dev, gpu_line, records):
+    """The calibrated-camera path and register-then-track streaming;
+    returns the kernel records at the tracker's shapes."""
+    distorted_pipeline(dev, gpu_line)
+    new = tracker_phase(dev, gpu_line, records)
+    bundle_phase(dev, gpu_line)
+    front_end_phase(dev, gpu_line)
+    return new
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -663,6 +1143,7 @@ def main() -> int:
 
     with torch.no_grad():
         records += robust_phase(dev, gpu_line)
+        records += calibrated_tracking_phase(dev, gpu_line, records)
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -3,8 +3,11 @@
 Port of ``repas_tpu/core/config.py`` (``DetectorConfig``, ``PnPConfig``,
 ``DepthConfig``, ``CadConfig``, ``PipelineConfig``): the same fields and
 defaults, limited to the sub-configs the frame pipeline reads.
-``from_reference`` builds this tree from ``dataclasses.asdict`` of a
-``repas_tpu`` config, so both packages can run the same knobs.
+``from_reference`` builds this tree, and ``tracker_config_from_reference``
+the tracker's ``TrackerConfig``, from ``dataclasses.asdict`` of a
+``repas_tpu`` config, so both packages can run the same knobs (the
+system has no learned weights: its configs and the tag codebook are what
+carries across).
 """
 from __future__ import annotations
 
@@ -98,3 +101,11 @@ def from_reference(cfg_dict: dict) -> PipelineConfig:
         tag_ids=tuple(cfg_dict["tag_ids"]),
         anchor_id=cfg_dict["anchor_id"],
     )
+
+
+def tracker_config_from_reference(cfg_dict: dict):
+    """pose.track.TrackerConfig from ``dataclasses.asdict`` of a repas_tpu
+    ``TrackerConfig``; a missing field raises KeyError."""
+    from repas_tpu_torch.pose.track import TrackerConfig
+
+    return _build(TrackerConfig, cfg_dict)

@@ -1,9 +1,10 @@
 """Synthetic tag renderer (host-side numpy): test and smoke-frame generator.
 
 Port of ``repas_tpu/detect/render.py`` (``tag_grid``, ``render_tag``,
-``tag_corner_px``, ``render_tag_in_scene`` for an undistorted camera) plus
-``example_frame``, the port's copy of the bench frame that
-``__graft_entry__._example_frame`` builds for the JAX package.
+``tag_corner_px``, ``_undistort_normalized_np``, ``render_tag_in_scene``
+with or without a Brown-Conrady lens) plus ``example_frame``, the port's
+copy of the bench frame that ``__graft_entry__._example_frame`` builds for
+the JAX package.
 """
 from __future__ import annotations
 
@@ -44,16 +45,36 @@ def tag_corner_px(cell_px: int = 16) -> np.ndarray:
     return np.array([[a, a], [b, a], [b, b], [a, b]], dtype=np.float32)
 
 
+def _undistort_normalized_np(xd: np.ndarray, yd: np.ndarray, dist,
+                             iters: int = 25):
+    """Invert the 8-coefficient Brown-Conrady model by fixed-point steps,
+    in float64 (kernels.project.distort_normalized's convention)."""
+    k = list(np.asarray(dist, np.float64).reshape(-1)) + [0.0] * 8
+    k1, k2, p1, p2, k3, k4, k5, k6 = k[:8]
+    x, y = xd.astype(np.float64), yd.astype(np.float64)
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = ((1 + r2 * (k1 + r2 * (k2 + r2 * k3)))
+                  / (1 + r2 * (k4 + r2 * (k5 + r2 * k6))))
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return x, y
+
+
 def render_tag_in_scene(tag_id: int, pose_R: np.ndarray, pose_t: np.ndarray,
                         K: np.ndarray, tag_size_m: float,
                         img_shape: tuple[int, int],
                         background: float = 180.0, white: float = 220.0,
-                        black: float = 30.0,
-                        supersample: int = 2) -> np.ndarray:
+                        black: float = 30.0, supersample: int = 2,
+                        dist=None) -> np.ndarray:
     """Render a posed tag into a gray background via inverse homography.
 
     The tag plane carries the tag centered at its origin with outer-border
-    half-size tag_size_m/2. Returns (H,W) float32 grayscale.
+    half-size tag_size_m/2. Returns (H,W) float32 grayscale. With a
+    non-zero `dist` each pixel is undistorted before the plane lookup, so
+    the image is what a distorting camera would capture.
     """
     h, w = img_shape
     half = tag_size_m / 2.0
@@ -63,8 +84,14 @@ def render_tag_in_scene(tag_id: int, pose_R: np.ndarray, pose_t: np.ndarray,
     ys, xs = np.meshgrid(
         (np.arange(h * ss) + 0.5) / ss - 0.5,
         (np.arange(w * ss) + 0.5) / ss - 0.5, indexing="ij")
-    Hinv = np.linalg.inv(K @ A)
-    pts = np.stack([xs, ys, np.ones_like(xs)], axis=-1) @ Hinv.T
+    if dist is not None and np.any(np.asarray(dist) != 0):
+        xu, yu = _undistort_normalized_np((xs - K[0, 2]) / K[0, 0],
+                                          (ys - K[1, 2]) / K[1, 1], dist)
+        pts = np.stack([xu, yu, np.ones_like(xu)],
+                       axis=-1) @ np.linalg.inv(A).T
+    else:
+        Hinv = np.linalg.inv(K @ A)
+        pts = np.stack([xs, ys, np.ones_like(xs)], axis=-1) @ Hinv.T
     tx = pts[..., 0] / pts[..., 2]
     ty = pts[..., 1] / pts[..., 2]
 

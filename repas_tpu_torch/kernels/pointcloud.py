@@ -1,13 +1,13 @@
 """Depth -> point-cloud kernels and the depth median window.
 
 Port of ``repas_tpu/kernels/pointcloud.py`` (``depth_to_meters``,
-``fused_pointcloud``, ``rgbd_to_pointcloud``, ``xyzrgb_rows``,
-``median_depth_window``). Carries kernel B3: ``fused_pointcloud``
-launches ``csrc/pointcloud.cu`` on CUDA tensors and runs its plain
-version on CPU tensors. Both compute the reference Pallas kernel's
-formula on every shape; the reference's XLA fallback (which the JAX CPU
-tests see) divides instead of multiplying by 1/f, so the two agree to a
-few ulp, not bit for bit.
+``depth_image_to_points``, ``fused_pointcloud``, ``rgbd_to_pointcloud``,
+``xyzrgb_rows``, ``median_depth_window``). Carries kernel B3:
+``fused_pointcloud`` launches ``csrc/pointcloud.cu`` on CUDA tensors and
+runs its plain version on CPU tensors. Both compute the reference Pallas
+kernel's formula on every shape; the reference's XLA fallback (which the
+JAX CPU tests see) divides instead of multiplying by 1/f, so the two
+agree to a few ulp, not bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +21,19 @@ def depth_to_meters(depth_u16: torch.Tensor, scale: float = 0.001
                     ) -> torch.Tensor:
     """u16 depth -> float32 meters."""
     return depth_u16.to(torch.float32) * scale
+
+
+def depth_image_to_points(depth_m: torch.Tensor, K: torch.Tensor
+                          ) -> torch.Tensor:
+    """Dense deprojection: (...,H,W) meters -> (...,H,W,3) camera-frame
+    XYZ, x = (u-cx)/fx*z, y = (v-cy)/fy*z."""
+    h, w = depth_m.shape[-2:]
+    dev = depth_m.device
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    u = torch.arange(w, dtype=torch.float32, device=dev)
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    z = depth_m
+    return torch.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], dim=-1)
 
 
 def fused_pointcloud_plain(depth_u16: torch.Tensor, rgb32: torch.Tensor,
@@ -85,13 +98,7 @@ def rgbd_to_pointcloud(rgb: torch.Tensor, depth_m: torch.Tensor,
     colored cloud (points (...,H*W,3), colors (...,H*W,3) in [0,1],
     valid (...,H*W) bool); invalid slots hold zeros. The reference's XLA
     deprojection: x = (u-cx)/fx*z."""
-    h, w = depth_m.shape[-2:]
-    dev = depth_m.device
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    u = torch.arange(w, dtype=torch.float32, device=dev)
-    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-    z = depth_m
-    pts = torch.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], dim=-1)
+    pts = depth_image_to_points(depth_m, K)
     valid = (depth_m > min_depth) & (depth_m < max_depth) & \
         torch.isfinite(depth_m)
     pts = torch.where(valid[..., None], pts, 0.0)

@@ -1,8 +1,9 @@
 """Depth-corrected translation.
 
-Port of ``repas_tpu/pose/depth_correct.py::depth_corrected_translation``:
+Port of ``repas_tpu/pose/depth_correct.py`` (``depth_corrected_translation``:
 project the PnP translation into the image, take a median-window depth
-there, and deproject it to P_depth, which replaces the PnP translation.
+there, and deproject it to P_depth, which replaces the PnP translation;
+``z_scale_correction``: scale the translation to a measured depth).
 """
 from __future__ import annotations
 
@@ -39,3 +40,11 @@ def depth_corrected_translation(t: torch.Tensor, depth_m: torch.Tensor,
     Y = (v.to(torch.float32) - cy) / fy * Zc
     P = torch.stack([X, Y, Zc], dim=-1)
     return torch.where(valid[..., None], P, t), valid
+
+
+def z_scale_correction(t: torch.Tensor, z_pcd):
+    """Scale translations t (...,3) so their z matches a measured depth
+    z_pcd (...): s = z_pcd / t_z (1 where |t_z| <= 1e-9), returns
+    (s t (...,3), s (...))."""
+    s = torch.where(torch.abs(t[..., 2]) > 1e-9, z_pcd / t[..., 2], 1.0)
+    return t * s[..., None], s

@@ -1,10 +1,12 @@
 """Multi-tag pose fusion: per-tag PnP, weighting, flip fix, quaternion
 averaging and anchor choice.
 
-Port of ``repas_tpu/pose/fusion.py`` (``FusedPose``, ``fuse_tag_poses``
-with ``try_all_orders=False``: the detector already returns corners in
-canonical TL,TR,BR,BL order). Batched over frames:
+Port of ``repas_tpu/pose/fusion.py`` (``FusedPose``, ``fuse_tag_poses``).
+Batched over frames:
 
+  * per-tag IPPE-square on the corners' known TL,TR,BR,BL order (the
+    detector canonicalizes it), or with ``try_all_orders`` the 8-order
+    search for corners of unknown order
   * weight_i = max(area,1e-3) / max(reproj_err,1e-3)
   * per-id 180-deg Z-flip fix (tag 9 by default)
   * weighted hemisphere-aligned quaternion average
@@ -20,7 +22,8 @@ import torch
 from repas_tpu_torch.core.consts import const
 from repas_tpu_torch.core.transforms import average_rotations_quat, flip_z_180
 from repas_tpu_torch.pose.depth_correct import depth_corrected_translation
-from repas_tpu_torch.pose.pnp import solve_pnp_ippe_square
+from repas_tpu_torch.pose.pnp import (solve_pnp_best_order,
+                                      solve_pnp_ippe_square)
 
 
 class FusedPose(NamedTuple):
@@ -36,22 +39,30 @@ class FusedPose(NamedTuple):
     P_depth_valid: torch.Tensor  # (B,N) bool
     weights: torch.Tensor        # (B,N)
     err_px: torch.Tensor         # (B,N) reprojection errors
-    order_idx: torch.Tensor      # (B,N) int32 corner order (always 0 here)
+    order_idx: torch.Tensor      # (B,N) int32 winning corner order
 
 
 def fuse_tag_poses(corners: torch.Tensor, ids: torch.Tensor,
                    areas: torch.Tensor, valid: torch.Tensor,
                    depth_m: torch.Tensor, K: torch.Tensor, tag_size_m: float,
                    anchor_id: int = 16, flip_z_ids=(9,),
-                   win: int = 5) -> FusedPose:
+                   win: int = 5, dist=None,
+                   try_all_orders: bool = False) -> FusedPose:
     """corners (B,N,4,2) px, ids (B,N), areas (B,N), valid (B,N);
-    depth_m (B,H,W) aligned to color. Invalid slots are masked out: their
+    depth_m (B,H,W) aligned to color; dist: distortion coefficients
+    (None: an undistorted camera). Invalid slots are masked out: their
     PnP may be NaN (degenerate corners), and no NaN reaches the weights,
     the average or the anchor."""
     K = K.to(torch.float32)
-    Rs, ts, errs = solve_pnp_ippe_square(corners.to(torch.float32), K,
-                                         tag_size_m)
-    orders = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
+    corners = corners.to(torch.float32)
+    if try_all_orders:
+        Rs, ts, errs, orders = solve_pnp_best_order(corners, K, tag_size_m,
+                                                    dist=dist)
+        orders = orders.to(torch.int32)
+    else:
+        Rs, ts, errs = solve_pnp_ippe_square(corners, K, tag_size_m,
+                                             dist=dist)
+        orders = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
 
     flip_ids = const(tuple(flip_z_ids), ids.dtype, ids.device)
     needs_flip = torch.any(ids[..., None] == flip_ids, dim=-1)

@@ -1,14 +1,21 @@
-"""IPPE-square PnP with a Levenberg-Marquardt polish.
+"""PnP solvers: IPPE-square, the detector's homography pose, SQPnP and
+the Levenberg-Marquardt polish.
 
 Port of ``repas_tpu/pose/pnp.py`` (``square_object_points``,
-``_svd2x2_signed``, ``_rotation_e3_to``, ``_ippe_from_homography``,
-``solve_pnp_ippe_square``, ``_chol_solve6``, ``_residuals``,
-``refine_pnp_gn``, ``SQUARE_ORDERS``, ``solve_pnp_best_order``) for an
-undistorted camera. Every function broadcasts over leading dimensions:
-the frame pipeline solves (B, D, 2 branches) problems in one pass. The
-LM Jacobian is forward mode (``torch.autograd.forward_ad`` with the six
-basis tangents batched), as the reference takes it from
-``jax.linearize``.
+``_homography_4pt``, ``_svd2x2_signed``, ``_rotation_e3_to``,
+``_ippe_from_homography``, ``solve_pnp_ippe_square``, ``detector_pose``,
+``_chol_solve6``, ``_residuals``, ``refine_pnp_gn``,
+``_nearest_rotation``, ``_rotation_from_homography``,
+``solve_pnp_sqpnp``, ``SQUARE_ORDERS``, ``solve_pnp_best_order``). Every
+function broadcasts over leading dimensions: the frame pipeline solves
+(B, D, 2 branches) problems in one pass. The LM Jacobian is forward mode
+(``torch.autograd.forward_ad`` with the six basis tangents batched), as
+the reference takes it from ``jax.linearize``.
+
+``dist=None`` statically skips the Brown-Conrady polynomial in every
+projection (the frame pipeline's default); a coefficient vector (a
+tensor on the inputs' device: a host array would be copied, blocking)
+undistorts the corners and distorts every projection of the LM loop.
 
 IPPE: with object plane z=0 and the normalized-coords homography H, the
 plane origin projects to v = (H13,H23)/H33 and the map's Jacobian there
@@ -21,11 +28,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
+import torch.nn.functional as F
 
 from repas_tpu_torch.core.consts import const
 from repas_tpu_torch.core.transforms import (homography_from_unit_square,
                                              rodrigues, rodrigues_inv, skew)
-from repas_tpu_torch.kernels.project import project_points
+from repas_tpu_torch.kernels.project import project_points, undistort_points
 
 _EPS = 1e-12
 
@@ -49,6 +57,27 @@ def square_object_points(tag_size_m: float, device) -> torch.Tensor:
     h = float(np.float32(tag_size_m)) / 2.0
     return const(((-h, -h, 0.0), (h, -h, 0.0), (h, h, 0.0), (-h, h, 0.0)),
                  torch.float32, device)
+
+
+def _dist(dist, like: torch.Tensor):
+    """Coefficients as a tensor of `like`'s dtype and device, or None."""
+    return None if dist is None else torch.as_tensor(
+        dist, dtype=like.dtype, device=like.device)
+
+
+def _homography_4pt(obj_xy: torch.Tensor, img_xy: torch.Tensor
+                    ) -> torch.Tensor:
+    """Exact homographies (...,3,3), H33 = 1, from 4 correspondences
+    (...,4,2) by an 8x8 solve."""
+    x, y, u, w = torch.broadcast_tensors(obj_xy[..., 0], obj_xy[..., 1],
+                                         img_xy[..., 0], img_xy[..., 1])
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    rows_u = torch.stack([x, y, one, zero, zero, zero, -u * x, -u * y], -1)
+    rows_v = torch.stack([zero, zero, zero, x, y, one, -w * x, -w * y], -1)
+    A = torch.cat([rows_u, rows_v], dim=-2)                # (...,8,8)
+    h = torch.linalg.solve(A, torch.cat([u, w], dim=-1))
+    return torch.cat([h, torch.ones_like(h[..., :1])], -1).reshape(
+        *h.shape[:-1], 3, 3)
 
 
 def _rot2(angle: torch.Tensor) -> torch.Tensor:
@@ -111,12 +140,12 @@ def _ippe_from_homography(Hn: torch.Tensor):
     cb = torch.clamp(sig[..., 1] * tz, -1.0, 1.0)     # q33 = cos(beta)
     sb = torch.sqrt(torch.clamp(1.0 - cb * cb, min=0.0))
     zero, ones = torch.zeros_like(cb), torch.ones_like(cb)
-    Uf = torch.zeros(*U.shape[:-2], 3, 3, dtype=A.dtype, device=A.device)
-    Uf[..., :2, :2] = U
-    Uf[..., 2, 2] = 1.0
-    Vf = torch.zeros_like(Uf)
-    Vf[..., :2, :2] = V
-    Vf[..., 2, 2] = 1.0
+    # 2x2 -> 3x3 with a 1 at (2,2); an indexed assignment of 1.0 would
+    # copy a host scalar into a 0-dim view, blocking, for unbatched input
+    e33 = const(((False,) * 3, (False,) * 3, (False, False, True)),
+                torch.bool, A.device)
+    Uf = torch.where(e33, 1.0, F.pad(U, (0, 1, 0, 1)))
+    Vf = torch.where(e33, 1.0, F.pad(V, (0, 1, 0, 1)))
     t = tz[..., None] * torch.cat([v, one], dim=-1)
     Rs = []
     for sgn in (1.0, -1.0):
@@ -129,18 +158,24 @@ def _ippe_from_homography(Hn: torch.Tensor):
 
 
 def solve_pnp_ippe_square(img_corners: torch.Tensor, K: torch.Tensor,
-                          tag_size_m: float, refine_iters: int = 8):
+                          tag_size_m: float, refine_iters: int = 8,
+                          dist=None):
     """IPPE_SQUARE: pixel corners (...,4,2) in TL,TR,BR,BL object order
     -> (R (...,3,3), t (...,3), reproj_err_px (...)).
 
     Both analytic solutions are LM-polished and the lower-reprojection
-    one (with t_z > 0) wins."""
+    one (with t_z > 0) wins. `dist=None` normalizes the corners in closed
+    form; a coefficient vector undistorts them (10 fixed-point steps)."""
     K = K.to(img_corners.dtype)
+    dist = _dist(dist, K)
     obj = square_object_points(tag_size_m, img_corners.device).to(
         img_corners.dtype)
-    norm_xy = torch.stack(
-        [(img_corners[..., 0] - K[0, 2]) / K[0, 0],
-         (img_corners[..., 1] - K[1, 2]) / K[1, 1]], dim=-1)
+    if dist is None:
+        norm_xy = torch.stack(
+            [(img_corners[..., 0] - K[0, 2]) / K[0, 0],
+             (img_corners[..., 1] - K[1, 2]) / K[1, 1]], dim=-1)
+    else:
+        norm_xy = undistort_points(img_corners, K, dist)
     Hn = homography_from_unit_square(norm_xy)
     Rs, ts = _ippe_from_homography(Hn)
     ts = ts * (tag_size_m / 2.0)
@@ -148,13 +183,37 @@ def solve_pnp_ippe_square(img_corners: torch.Tensor, K: torch.Tensor,
     # error: under corner noise their pre-refine errors overlap
     img2 = img_corners[..., None, :, :].expand(*Rs.shape[:-2], 4, 2)
     rvs, ts2, errs = refine_pnp_gn(obj, img2, rodrigues_inv(Rs), ts, K,
-                                   iters=refine_iters)
+                                   dist, iters=refine_iters)
     scores = errs + torch.where(ts2[..., 2] <= 0, 1e6, 0.0)
     best = torch.argmin(scores, dim=-1)[..., None]
     rv = torch.take_along_dim(rvs, best[..., None], dim=-2)[..., 0, :]
     t = torch.take_along_dim(ts2, best[..., None], dim=-2)[..., 0, :]
     err = torch.take_along_dim(errs, best, dim=-1)[..., 0]
     return rodrigues(rv), t, err
+
+
+def detector_pose(img_corners: torch.Tensor, K: torch.Tensor,
+                  tag_size_m: float):
+    """The AprilTag library's homography pose: both IPPE branches of the
+    corners' homography, no distortion model and no polish, the branch
+    with t_z > 0 and the lower reprojection error winning. Corners
+    (...,4,2) -> (R (...,3,3), t (...,3), err_px (...))."""
+    K = K.to(img_corners.dtype)
+    obj = square_object_points(tag_size_m, img_corners.device).to(
+        img_corners.dtype)
+    zeros = const((0.0,) * 8, img_corners.dtype, img_corners.device)
+    Hn = homography_from_unit_square(undistort_points(img_corners, K, zeros))
+    Rs, ts = _ippe_from_homography(Hn)
+    ts = ts * (tag_size_m / 2.0)
+    proj = project_points(obj, rodrigues_inv(Rs), ts, K)      # (...,2,4,2)
+    errs = torch.mean(torch.linalg.vector_norm(
+        proj - img_corners[..., None, :, :], dim=-1), dim=-1)
+    scores = errs + torch.where(ts[..., 2] <= 0, 1e6, 0.0)
+    best = torch.argmin(scores, dim=-1)[..., None]
+    R = torch.take_along_dim(Rs, best[..., None, None], dim=-3)[..., 0, :, :]
+    t = torch.take_along_dim(ts, best[..., None], dim=-2)[..., 0, :]
+    err = torch.take_along_dim(errs, best, dim=-1)[..., 0]
+    return R, t, err
 
 
 def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -187,11 +246,12 @@ def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def _residuals(params, obj, img, K, w):
+def _residuals(params, obj, img, K, dist, w):
     """Weighted reprojection residuals (...,2N) of params (...,6)
-    [rvec, t] for object points (N,3) and pixels (...,N,2)."""
-    proj = project_points(obj, params[..., :3], params[..., 3:], K)
-    return ((proj - img) * w[:, None]).flatten(-2)
+    [rvec, t] for object points (...,N,3), pixels (...,N,2) and weights
+    (...,N)."""
+    proj = project_points(obj, params[..., :3], params[..., 3:], K, dist)
+    return ((proj - img) * w[..., None]).flatten(-2)
 
 
 def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
@@ -208,24 +268,27 @@ def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
 
 def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
                   rvec0: torch.Tensor, tvec0: torch.Tensor, K: torch.Tensor,
-                  iters: int = 10, damping: float = 1e-6, weights=None):
+                  dist=None, iters: int = 10, damping: float = 1e-6,
+                  weights=None):
     """Adaptive Levenberg-Marquardt on reprojection error over (rvec, t).
 
-    obj_pts (N,3) shared; img_pts (...,N,2), rvec0/tvec0 (...,3).
-    `weights` (N,) scales per-point residuals (0 masks a point out).
-    Returns (rvec (...,3), tvec (...,3), mean_reproj_err_px (...)).
-    Lambda shrinks on an accepted step and grows on a rejected one; a
-    fixed iteration count, no early exit.
+    obj_pts (N,3) shared or (...,N,3); img_pts (...,N,2), rvec0/tvec0
+    (...,3). `weights` (N,) or (...,N) scales per-point residuals (0
+    masks a point out). Returns (rvec (...,3), tvec (...,3),
+    mean_reproj_err_px over weighted points (...)). Lambda shrinks on an
+    accepted step and grows on a rejected one; a fixed iteration count,
+    no early exit.
     """
     dt = img_pts.dtype
     K = K.to(dt)
-    n = obj_pts.shape[0]
+    dist = _dist(dist, K)
+    n = obj_pts.shape[-2]
     w = (torch.ones(n, dtype=dt, device=img_pts.device) if weights is None
          else torch.as_tensor(weights, dtype=dt, device=img_pts.device))
     p = torch.cat([rvec0.to(dt), tvec0.to(dt)], dim=-1)
 
     def res_fn(pp):
-        return _residuals(pp, obj_pts, img_pts, K, w)
+        return _residuals(pp, obj_pts, img_pts, K, dist, w)
 
     eye6 = torch.eye(6, dtype=dt, device=p.device)
     r = res_fn(p)
@@ -248,16 +311,119 @@ def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
         lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-9),
                           torch.clamp(torch.clamp(lam * 8.0, min=1e-4),
                                       max=1e6))
-    proj = project_points(obj_pts, p[..., :3], p[..., 3:], K)
+    proj = project_points(obj_pts, p[..., :3], p[..., 3:], K, dist)
     per_pt = torch.linalg.vector_norm(proj - img_pts, dim=-1)
     wpos = (w > 0).to(dt)
-    err = torch.sum(per_pt * wpos, dim=-1) / torch.clamp(wpos.sum(), min=1)
+    err = torch.sum(per_pt * wpos, dim=-1) / torch.clamp(wpos.sum(-1), min=1)
     return p[..., :3], p[..., 3:], err
+
+
+def _nearest_rotation(M: torch.Tensor) -> torch.Tensor:
+    """Project (...,3,3) matrices to SO(3) via SVD (det-corrected)."""
+    U, _, Vt = torch.linalg.svd(M)
+    d = torch.sign(torch.linalg.det(U @ Vt))
+    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
+    return (U * D[..., None, :]) @ Vt
+
+
+def _rotation_from_homography(Hm: torch.Tensor) -> torch.Tensor:
+    """SO(3) seed (...,3,3) from plane-to-normalized-image homographies
+    H ~ s [r1 r2 t] of either sign: h1 and h2 are flipped so the plane
+    origin sits at positive depth before the cross product (negating the
+    whole matrix would flip the third column too)."""
+    h1, h2, h3 = Hm[..., :, 0], Hm[..., :, 1], Hm[..., :, 2]
+    s = 0.5 * (torch.linalg.vector_norm(h1, dim=-1)
+               + torch.linalg.vector_norm(h2, dim=-1))
+    sgn = torch.where(h3[..., 2] < 0, -1.0, 1.0)[..., None]
+    h3n = torch.linalg.cross(h1, h2, dim=-1) / torch.clamp(
+        s, min=1e-20)[..., None]
+    return _nearest_rotation(torch.stack([sgn * h1, sgn * h2, h3n], dim=-1))
+
+
+def solve_pnp_sqpnp(obj_pts: torch.Tensor, img_pts: torch.Tensor,
+                    K: torch.Tensor, dist=None, refine_iters: int = 15,
+                    weights=None):
+    """General PnP: object points (N,3) or (...,N,3), pixels (...,N,2),
+    optional weights (N,) or (...,N) -> (R (...,3,3), t (...,3),
+    mean_reproj_err_px (...)).
+
+    Minimizes sum_i ||(I - u_i u_i^T)(R p_i + t)||^2 over bearing rays
+    u_i; eliminating t (t = T vec(R)) leaves x^T Omega x over
+    x = vec(R). Seeds: the three smallest eigenvectors of Omega with both
+    signs, projected to SO(3), and a weighted homography DLT (exact for
+    coplanar layouts, where Omega's small eigen-subspace is degenerate).
+    Each seed is LM-polished on reprojection error with the distortion
+    polynomial (zeros when `dist` is None); the lowest error with every
+    weighted point in front of the camera wins.
+
+    On CUDA the eigen-, singular-value and linear solves check their
+    status on the host, so a call synchronizes."""
+    dt = img_pts.dtype
+    dev = img_pts.device
+    K = K.to(dt)
+    dist = (const((0.0,) * 8, dt, dev) if dist is None
+            else _dist(dist, K))
+    obj = obj_pts.to(dt)
+    n = obj.shape[-2]
+    wts = (torch.ones(n, dtype=dt, device=dev) if weights is None
+           else torch.as_tensor(weights, dtype=dt, device=dev))
+    xy = undistort_points(img_pts, K, dist)                   # (...,N,2)
+    u = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+    u = u / torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    W = (eye3 - u[..., :, None] * u[..., None, :]) * wts[..., None, None]
+
+    # A_i x = R p_i with x = vec(R) (row-major): A_i = kron(I3, p_i^T)
+    A = torch.einsum("ab,...nc->...nabc", eye3, obj).reshape(
+        *obj.shape[:-1], 3, 9)
+    SW = W.sum(dim=-3)                                        # (...,3,3)
+    SWA = torch.einsum("...nij,...njk->...ik", W, A)          # (...,3,9)
+    T = -torch.linalg.solve(SW + _EPS * eye3, SWA)            # t = T x
+    M = A + T[..., None, :, :]
+    Omega = torch.einsum("...nia,...nij,...njb->...ab", M, W, M)
+
+    _, evecs = torch.linalg.eigh(Omega)
+    small = evecs[..., :, :3].transpose(-1, -2)               # (...,3,9)
+    seeds = torch.stack([small, -small], dim=-2).reshape(
+        *small.shape[:-2], 6, 3, 3)
+    cand = [_nearest_rotation(seeds)]
+
+    # weighted homography DLT on (x, y) -> normalized coords
+    sw = torch.sqrt(torch.clamp(wts, min=0.0))[..., None]
+    x_, y_, uu, vv = torch.broadcast_tensors(obj[..., 0], obj[..., 1],
+                                             xy[..., 0], xy[..., 1])
+    one, zero = torch.ones_like(x_), torch.zeros_like(x_)
+    r_u = torch.stack([x_, y_, one, zero, zero, zero,
+                       -uu * x_, -uu * y_, -uu], dim=-1)
+    r_v = torch.stack([zero, zero, zero, x_, y_, one,
+                       -vv * x_, -vv * y_, -vv], dim=-1)
+    Ah = torch.cat([r_u * sw, r_v * sw], dim=-2)              # (...,2N,9)
+    Vt = torch.linalg.svd(Ah, full_matrices=False)[2]
+    Hm = Vt[..., -1, :].reshape(*Vt.shape[:-2], 3, 3)
+    cand.append(_rotation_from_homography(Hm)[..., None, :, :])
+    cand_R = torch.cat(cand, dim=-3)                          # (...,7,3,3)
+
+    # t per seed from the closed form t = T vec(R), optimal for any R
+    t0 = (T[..., None, :, :] @ cand_R.flatten(-2)[..., None])[..., 0]
+    obj7 = obj[..., None, :, :]
+    w7 = wts[..., None, :]
+    img7 = img_pts[..., None, :, :].expand(*cand_R.shape[:-2], n, 2)
+    rvecs, ts, errs = refine_pnp_gn(obj7, img7, rodrigues_inv(cand_R), t0, K,
+                                    dist, iters=refine_iters, weights=w7)
+    cam_z = (obj7 @ rodrigues(rvecs).transpose(-1, -2)
+             + ts[..., None, :])[..., 2]
+    front = torch.all((cam_z > 0) | (w7 <= 0), dim=-1)
+    scores = errs + torch.where(front, 0.0, 1e6)
+    best = torch.argmin(scores, dim=-1)[..., None]
+    rv = torch.take_along_dim(rvecs, best[..., None], dim=-2)[..., 0, :]
+    t = torch.take_along_dim(ts, best[..., None], dim=-2)[..., 0, :]
+    err = torch.take_along_dim(errs, best, dim=-1)[..., 0]
+    return rodrigues(rv), t, err
 
 
 def solve_pnp_best_order(img_corners: torch.Tensor, K: torch.Tensor,
                          tag_size_m: float, z_penalty: float = 1000.0,
-                         refine_iters: int = 8):
+                         refine_iters: int = 8, dist=None):
     """Try all 8 object-corner orderings with IPPE-square; score = mean
     reprojection error + z_penalty where t_z <= 0; keep the best.
 
@@ -270,7 +436,7 @@ def solve_pnp_best_order(img_corners: torch.Tensor, K: torch.Tensor,
     inv = const(inv, torch.int64, img_corners.device)         # (8,4)
     c = img_corners[..., inv, :]                              # (...,8,4,2)
     Rs, ts, errs = solve_pnp_ippe_square(c, K, tag_size_m,
-                                         refine_iters=refine_iters)
+                                         refine_iters=refine_iters, dist=dist)
     scores = errs + torch.where(ts[..., 2] <= 0, z_penalty, 0.0)
     best = torch.argmin(scores, dim=-1)
     R = torch.take_along_dim(Rs, best[..., None, None, None], dim=-3)[

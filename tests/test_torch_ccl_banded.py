@@ -192,6 +192,8 @@ def _h100_capacity(cluster, band_rows, per_sm):
                                                      # clusters of 6 fit
     ((8, 360, 640), "cluster", 9, 40, 9, 8, 1),      # ladder stage A
     ((16, 256, 256), "cluster", 12, 22, 12, 16, 1),  # stage B ROIs
+    ((1, 360, 640), "cluster", 9, 40, 9, 1, 1),      # tracker registration
+    ((1, 256, 256), "cluster", 16, 16, 16, 1, 1),    # tracker ROI step
     ((1, 724, 724), "cluster", 16, 46, 16, 1, 1),    # needs a cluster over 8
     ((1, 512, 1024), "cluster", 16, 32, 16, 1, 1),   # MAX_VMEM_PIXELS
     ((2, 720, 1280), "grid", 0, 11, 66, 2, 1),       # over any cluster

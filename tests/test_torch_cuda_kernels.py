@@ -38,6 +38,8 @@ def dev():
     ((16, 360, 640), -1.0, 5),       # all foreground
     ((16, 360, 640), 1.0, 5),        # all background
     ((12, 720, 1280), 0.5, 5),       # several grid groups
+    ((1, 360, 640), 0.55, 5),        # the tracker's registration
+    ((1, 256, 256), 0.55, 5),        # the tracker's ROI step
 ])
 def test_ccl_kernel_matches_plain(dev, shape, density, iters):
     rng = np.random.default_rng(0)
@@ -97,6 +99,18 @@ def test_tiled_ccl_matches_b1_and_plain(dev, shape, density, iters):
         mask, iters))
 
 
+@pytest.mark.parametrize("shape", [(1, 360, 640), (1, 256, 256)])
+def test_ccl_plan_for_one_image(dev, shape):
+    """A single image (the tracker's shapes) takes one cluster: one
+    launch, bands covering every row."""
+    mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+    plan = ccl_cuda.plan_for(mask)
+    print(shape, plan)
+    assert plan.mode == "cluster" and plan.launches == 1 and plan.group == 1
+    assert plan.bands == plan.cluster
+    assert plan.bands * plan.band_rows >= shape[1]
+
+
 def test_band_ccl_refused_launch_raises(dev):
     """A launch the card refuses raises in the wrapper: a cooperative
     launch of more bands than the SMs hold, a cluster over 16 CTAs."""
@@ -141,6 +155,8 @@ def test_ccl_tiled_wrappers_reject_bad_inputs(dev):
 
 @pytest.mark.parametrize("shape,ah,aw,aligned", [
     ((16, 1536, 1280), 208, 384, True),
+    ((1, 1536, 1280), 208, 384, True),   # the tracker's registration
+    ((1, 480, 256), 192, 192, False),    # the tracker's ROI pyramid
     ((2, 100, 150), 64, 48, False),
     ((2, 100, 150), 63, 45, False),
 ])
@@ -248,3 +264,106 @@ def test_robust_ladder_on_card_matches_cpu(dev):
     v = cpu.valid
     assert (gpu.corners.cpu() - cpu.corners).abs()[v].max() <= 0.05
     assert cpu.ids[:, 0].tolist() == [11, 23, 24, 25, 3, -1]
+
+
+def test_distorted_pipeline_on_card_without_sync(dev):
+    """The pipeline with distortion coefficients, as tensors on the card,
+    issues no synchronizing call; without a cloud B3 does not run."""
+    from repas_tpu_torch.detect.render import example_frame
+    from repas_tpu_torch.pipeline import process_frames
+
+    rgb, depth, K = example_frame(360, 640)
+    rgbs = torch.from_numpy(rgb[None]).to(dev)
+    depths = torch.from_numpy(depth[None]).to(dev)
+    Kd = torch.from_numpy(K).to(dev)
+    dist = torch.tensor([-0.05, 0.01, 0.0, 0.0, 0.0], device=dev)
+    process_frames(rgbs, depths, Kd, dist=dist)
+    cpu = process_frames(rgbs.cpu(), depths.cpu(), K, dist=dist.cpu(),
+                         with_pointcloud=False)
+    before = _build.launches["pointcloud"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = process_frames(rgbs, depths, Kd, dist=dist,
+                             with_pointcloud=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launches["pointcloud"] == before
+    assert tuple(out.pointcloud.shape) == (1, 6, 0)
+    assert torch.equal(out.detections.ids.cpu(), cpu.detections.ids)
+    v = cpu.detections.valid
+    assert (out.pose.t.cpu() - cpu.pose.t)[v].abs().max() <= 1e-4
+
+
+def test_tracker_on_card_matches_cpu(dev):
+    """The tracker on the card takes the modes, ids and poses of the
+    tracker on the CPU (t within 0.05 mm) and reads the device once per
+    track step."""
+    import warnings
+
+    from repas_tpu_torch.detect.render import render_tag_in_scene
+    from repas_tpu_torch.pose.track import TagTracker, TrackerConfig
+
+    K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]], np.float32)
+    R = np.eye(3, dtype=np.float32)
+    frames = [render_tag_in_scene(5, R, np.array([0.01 * i, 0, 0.5],
+                                                 np.float32),
+                                  K, 0.06, (480, 640), supersample=1)
+              for i in range(4)]
+    gpu = TagTracker(K, tag_size=0.06, config=TrackerConfig())
+    cpu = TagTracker(K, tag_size=0.06, device="cpu")
+    assert gpu.device.type == "cuda"
+    for i, f in enumerate(frames):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                a = gpu.step(f)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        b = cpu.step(f)
+        assert (a.mode, a.ok, a.tag_id) == (b.mode, b.ok, b.tag_id)
+        assert np.abs(a.t - b.t).max() <= 5e-5
+        syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+        if i > 1:
+            assert len(syncs) <= 1, [str(w.message) for w in syncs]
+
+
+def test_front_end_on_card_matches_cpu(dev):
+    """Alignment, NV12/YUYV and the tag bundle on the card against the
+    port on the CPU: alignment differs on at most 1e-3 of the pixels (the
+    floor of a projection within an ulp of an integer), YUV by at most one
+    level on 0.05 % of the values, the bundle R within 0.01 degrees."""
+    from repas_tpu_torch.kernels.align import align_depth_to_color
+    from repas_tpu_torch.kernels.color import nv12_to_rgb, yuyv_to_rgb
+    from repas_tpu_torch.pose.bundle import solve_tag_bundle
+
+    rng = np.random.default_rng(5)
+    depth = torch.from_numpy(rng.uniform(0.8, 1.2, (144, 160)).astype(
+        np.float32))
+    Kd = np.array([[126.0, 0, 80.1], [0, 126.1, 72.05], [0, 0, 1]],
+                  np.float32)
+    Kc = np.array([[228.1, 0, 157.2], [0, 227.9, 87.2], [0, 0, 1]],
+                  np.float32)
+    R, t = np.eye(3, dtype=np.float32), np.array([0.03, 0, 0], np.float32)
+    a = align_depth_to_color(depth.to(dev), Kd, Kc, R, t, (180, 320)).cpu()
+    b = align_depth_to_color(depth, Kd, Kc, R, t, (180, 320))
+    assert (a != b).float().mean() <= 1e-3
+    buf = torch.from_numpy(rng.integers(0, 256, (72, 64), dtype=np.uint8))
+    for fn in (nv12_to_rgb, yuyv_to_rgb):
+        d = (fn(buf.to(dev)).cpu().int() - fn(buf).int()).abs()
+        assert d.max() <= 1 and (d > 0).float().mean() <= 5e-4
+    K = torch.tensor([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])
+    centers = torch.tensor([[0.0, 0, 0], [0.12, 0, 0], [0, 0.1, 0]])
+    h = 0.0303 / 2
+    offs = torch.tensor([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]])
+    cam = torch.cat([centers[:, None] + offs, centers[:, None]], 1) \
+        + torch.tensor([0.02, -0.01, 0.7])
+    px = cam[..., :2] / cam[..., 2:] * 600.0 + torch.tensor([320.0, 240.0])
+    valid = torch.ones(3, dtype=torch.bool)
+    Rg, tg, _ = solve_tag_bundle(px[:, :4].to(dev), px[:, 4].to(dev),
+                                 valid.to(dev), centers.to(dev), 0.0303,
+                                 K.to(dev))
+    Rc, tc, _ = solve_tag_bundle(px[:, :4], px[:, 4], valid, centers,
+                                 0.0303, K)
+    assert (Rg.cpu() - Rc).abs().max() <= 2e-4
+    assert (tg.cpu() - tc).abs().max() <= 1e-4
