@@ -45,7 +45,21 @@
    per step), the stages' times, one robust registration; (c) the tag
    bundle's SQPnP on the card against the CPU; (d) depth-to-color
    alignment and NV12/YUYV decoding at 720p against the CPU;
-7. prints one JSON line of kernel results, then, last, one JSON line
+7. the registration phase (repas_tpu_torch.cloud, no kernel of its own):
+   (a) register_clouds on the JAX bench's 1M-point scene (bench.py's
+   bumpy surface, seed 7, the source moved by rv (0.04, -0.06, 0.30) and
+   t (0.06, -0.04, 0.05)) with tensors on the card: ICP fitness > 0.5,
+   t error < 1 mm, R error < 0.05 degrees, no voxel dropped (n_down <=
+   capacity); its synchronising calls counted; (b) one timed run, then
+   the stages one by one with a synchronise between them (the split;
+   both skipped if the first run took over 60 s); (c) on a 20k-point
+   pair of the same surface, ICP from one T_init, RANSAC on one set of
+   picks and the two-level grid query, each on the card against the CPU;
+   (d) the capture side at 720p: create_masked_pointcloud on the bench
+   frame (5 mm voxels, default outlier removal, normals) with its peak
+   memory (under 40 GB), then its stages on the card against the CPU on
+   one sample, and the tag-anchored crop around the frame's fused pose;
+8. prints one JSON line of kernel results, then, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -115,6 +129,19 @@ TRACK_MOTION = 30
 TRACK_FAR_T = np.array([-0.15, 0.1, 0.6], np.float32)
 TRACK_MODES = (["register"] + ["track"] * (TRACK_MOTION - 1)
                + ["lost"] * 3 + ["register", "track"])
+# registration phase: the JAX package's 1M-point bench scene
+# (bench.py:225-240) and its register_clouds call (seed 7, defaults:
+# capacity 8192, 8192 hypotheses, 100 ICP iterations, 64^3 ICP grid)
+REG_N = 1_000_000
+REG_SEED = 7
+REG_RV = (0.04, -0.06, 0.30)
+REG_T = (0.06, -0.04, 0.05)
+REG_CAPACITY = 8192
+REG_SMALL = 20_000             # the card-against-CPU checks
+REG_SMALL_ICP_ITERS = 30       # bounds the CPU side's time
+REG_SINGLE_RUN_S = 60.0        # a run longer than this is timed once
+CAPTURE_VOXEL = 0.005
+CAPTURE_BOX = 0.1              # +-0.1 m around the tag, every axis
 
 
 def log(obj) -> None:
@@ -1054,6 +1081,371 @@ def calibrated_tracking_phase(dev, gpu_line, records):
     return new
 
 
+def bumpy_scene(n: int, seed: int = REG_SEED):
+    """bench.py's registration scene: n target points of the surface
+    z = 0.08 sin(7x) cos(5y) + 0.05 x^2 over [-0.5, 0.5]^2, and the
+    source that (R, t) maps onto them. Returns (src, tgt, R, t)."""
+    rng = np.random.default_rng(seed)
+    pts = np.column_stack([rng.uniform(-0.5, 0.5, n),
+                           rng.uniform(-0.5, 0.5, n),
+                           np.zeros(n)]).astype(np.float32)
+    pts[:, 2] = (0.08 * np.sin(7 * pts[:, 0]) * np.cos(5 * pts[:, 1])
+                 + 0.05 * pts[:, 0] ** 2)
+    R = rotation(REG_RV)
+    t = np.array(REG_T, np.float32)
+    return ((pts - t) @ R).astype(np.float32), pts, R, t
+
+
+def pose_error(T, R, t):
+    """(t error mm, R error deg) of a 4x4 T against the truth."""
+    T = np.asarray(T, np.float64)
+    return (float(np.linalg.norm(T[:3, 3] - t)) * 1000,
+            angle_deg(T[:3, :3], R))
+
+
+def register_staged(src, mask, tgt, tmask, seed):
+    """register_clouds' stages, one by one, each ended by a synchronise.
+    Returns (ICPResult, ransac fitness, voxel, n_down, seconds by
+    stage)."""
+    from repas_tpu_torch.cloud import registration as reg
+    from repas_tpu_torch.cloud.filters import compact_masked, voxel_downsample
+    from repas_tpu_torch.cloud.fpfh import (fpfh_features, match_features,
+                                            ransac_registration)
+    from repas_tpu_torch.cloud.normals import estimate_normals_grid
+
+    split = dict.fromkeys(("downsample", "normals", "fpfh", "matching",
+                           "ransac", "target_normals", "icp"), 0.0)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[name] += time.perf_counter() - t0
+        return out
+
+    voxel = max(0.02 * reg._aabb_diag(src, mask, tgt, tmask), 1e-3)
+    clouds, n_down = [], 0
+    for pts, m in ((src, mask), (tgt, tmask)):
+        pd, _, _, md = timed("downsample",
+                             lambda: voxel_downsample(pts, m, voxel))
+        pc, mc, nv = timed("downsample",
+                           lambda: compact_masked(pd, md, REG_CAPACITY))
+        n_down = max(n_down, int(nv))
+        nrm, _ = timed("normals", lambda: estimate_normals_grid(
+            pc, mc, k=24, radius=2.0 * voxel, dims=(32, 32, 32), slots=32))
+        feat = timed("fpfh", lambda: fpfh_features(
+            pc, nrm, mc, radius=5.0 * voxel, k=48, dims=(32, 32, 32),
+            slots=32))
+        clouds.append((pc, mc, feat))
+    (sp, sm, sf), (tp, tm, tf) = clouds
+    corr, _ = timed("matching", lambda: match_features(sf, sm, tf, tm))
+    T0, fit = timed("ransac", lambda: ransac_registration(
+        sp, sm, tp, tm, corr, dist_thresh=2.5 * voxel, key=seed))
+    T0 = T0.cpu().numpy().astype(np.float64)
+    nrm_t, _ = timed("target_normals", lambda: estimate_normals_grid(
+        tgt, tmask, k=16, radius=2.0 * voxel))
+    res = timed("icp", lambda: reg.icp_point_to_plane(
+        src, mask, tgt, tmask, nrm_t, max_corr_dist=1.5 * voxel,
+        T_init=T0))
+    return res, float(fit), voxel, n_down, split
+
+
+def registration_1m(dev, gpu_line):
+    """register_clouds on the bench's 1M scene on the card: gates, sync
+    count, peak memory, one timed run, the stage split, and one ICP
+    correspondence pass's device time against its host time."""
+    from repas_tpu_torch.cloud import knn, registration as reg
+
+    src_np, tgt_np, R, t = bumpy_scene(REG_N)
+    src = torch.from_numpy(src_np).to(dev)
+    tgt = torch.from_numpy(tgt_np).to(dev)
+    mask = torch.ones(REG_N, dtype=torch.bool, device=dev)
+
+    # the first run: register_clouds itself, its synchronising calls
+    # counted, n_down read off its global_register_fpfh
+    n_down = []
+    orig = reg.global_register_fpfh
+
+    def recording(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        n_down.append(out[2])
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reg.global_register_fpfh = recording
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                res, fit_g, voxel = reg.register_clouds(src, mask, tgt, mask,
+                                                        seed=REG_SEED)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        reg.global_register_fpfh = orig
+    syncs = sync_warnings(caught)
+    peak = torch.cuda.max_memory_allocated(dev)
+    t_err, r_err = pose_error(res.T.cpu().numpy(), R, t)
+    fitness = float(res.fitness)
+    out = {"phase": "registration", "points": REG_N, "voxel_m": voxel,
+           "n_down": n_down[0], "capacity": REG_CAPACITY,
+           "ransac_fitness": fit_g, "icp_fitness": fitness,
+           "icp_rmse_m": float(res.inlier_rmse),
+           "icp_iterations": res.iterations, "t_err_mm": t_err,
+           "R_err_deg": r_err, "first_run_s": first_s,
+           "sync_calls": len(syncs),
+           "sync_messages": sorted(set(syncs))[:4],
+           "peak_mem_bytes": peak, "gpu": gpu_line}
+    log(out)
+    # the bench's own gate, then this port's
+    if fitness < 0.3 or t_err > 20.0:
+        raise AssertionError(f"registration fails the bench gate: fitness "
+                             f"{fitness}, t error {t_err} mm")
+    if not (fitness > 0.5 and t_err < 1.0 and r_err < 0.05
+            and n_down[0] <= REG_CAPACITY):
+        raise AssertionError(f"registration: fitness {fitness}, t error "
+                             f"{t_err} mm, R error {r_err} deg, n_down "
+                             f"{n_down[0]}")
+    if first_s > REG_SINGLE_RUN_S:
+        log({"phase": "registration_timing", "single_run": True,
+             "wall_s": first_s, "note": "the first run took over "
+             f"{REG_SINGLE_RUN_S} s: timed once, not repeated",
+             "gpu": gpu_line})
+        return
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reg.register_clouds(src, mask, tgt, mask, seed=REG_SEED)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    res2, fit2, _, n_down2, split = register_staged(src, mask, tgt, mask,
+                                                    REG_SEED)
+    t_err2, r_err2 = pose_error(res2.T.cpu().numpy(), R, t)
+    if t_err2 >= 1.0 or r_err2 >= 0.05 or float(res2.fitness) <= 0.5:
+        raise AssertionError(f"staged registration: t error {t_err2} mm, R "
+                             f"error {r_err2} deg")
+    # one ICP correspondence pass (both grid levels over the 1M moved
+    # source points): the device's time alone (queued behind a spin
+    # kernel) against the host clock around it
+    gh2 = knn.grid2_build(tgt, mask, 1.5 * voxel)
+    Tr = res2.T
+    moved = src @ Tr[:3, :3].T + Tr[:3, 3]
+
+    def query():
+        return knn.grid2_query(gh2, tgt, moved, mask)
+
+    query_host_ms = float(np.median(host_ms(query, 3)))
+    query_dev_ms = cuda_ms(query, iters=3, warmup=1, queued=True)
+    log({"phase": "registration_timing", "single_run": False,
+         "wall_s": wall_s, "staged_wall_s": sum(split.values()),
+         "split_s": split, "icp_iterations": res2.iterations,
+         "icp_ms_per_iteration": split["icp"] * 1e3 / max(res2.iterations,
+                                                          1),
+         "staged_n_down": n_down2, "staged_ransac_fitness": fit2,
+         "staged_t_err_mm": t_err2, "staged_R_err_deg": r_err2,
+         "icp_query_host_ms": query_host_ms,
+         "icp_query_device_ms": query_dev_ms, "gpu": gpu_line})
+
+
+def registration_vs_cpu(dev):
+    """A 20k-point pair of the same surface: ICP from one T_init, RANSAC on
+    one set of picks and the two-level grid query, on the card against
+    the CPU port."""
+    from repas_tpu_torch.cloud import knn, registration as reg
+    from repas_tpu_torch.cloud.filters import (_choice, _generator,
+                                               compact_masked,
+                                               voxel_downsample)
+    from repas_tpu_torch.cloud.fpfh import (_ransac_from_picks,
+                                            fpfh_features, match_features)
+    from repas_tpu_torch.cloud.normals import estimate_normals_grid
+    from repas_tpu_torch.core.transforms import make_T
+
+    src_np, tgt_np, R, t = bumpy_scene(REG_SMALL, seed=1)
+    src, tgt = torch.from_numpy(src_np), torch.from_numpy(tgt_np)
+    mask = torch.ones(REG_SMALL, dtype=torch.bool)
+    voxel = max(0.02 * reg._aabb_diag(src, mask, tgt, mask), 1e-3)
+    nrm, _ = estimate_normals_grid(tgt, mask, k=16, radius=2.0 * voxel)
+
+    def both(fn, *args):
+        """fn on the CPU tensors and on their copies on the card."""
+        return fn(*args), fn(*(a.to(dev) if torch.is_tensor(a) else a
+                               for a in args))
+
+    # ICP from the truth moved by 0.6 degrees and 5 mm
+    T_init = make_T(rotation(np.array(REG_RV) + [0.01, -0.01, 0.005]),
+                    torch.from_numpy(t + np.float32([0.004, -0.003, 0.002]))
+                    ).numpy()
+    ic, ig = both(lambda *a: reg.icp_point_to_plane(
+        *a, max_corr_dist=1.5 * voxel, max_iters=REG_SMALL_ICP_ITERS,
+        T_init=T_init), src, mask, tgt, mask, nrm)
+    Tc, Tg = ic.T.numpy(), ig.T.cpu().numpy()
+    icp = {"t_m": float(np.abs(Tc[:3, 3] - Tg[:3, 3]).max()),
+           "R_deg": angle_deg(Tc[:3, :3], Tg[:3, :3]),
+           "fitness": abs(float(ic.fitness) - float(ig.fitness)),
+           "iterations": [ic.iterations, ig.iterations],
+           "t_err_mm": pose_error(Tg, R, t)[0]}
+    if icp["t_m"] > 1e-5 or icp["R_deg"] > 1e-3 or icp["fitness"] > 1e-4:
+        raise AssertionError(f"ICP on the card vs CPU: {icp}")
+
+    # RANSAC on one set of picks, drawn on the CPU
+    clouds = []
+    for pts in (src, tgt):
+        pd, _, _, md = voxel_downsample(pts, mask, voxel)
+        pc, mc, _ = compact_masked(pd, md, REG_CAPACITY)
+        n_c, _ = estimate_normals_grid(pc, mc, k=24, radius=2.0 * voxel,
+                                       dims=(32, 32, 32), slots=32)
+        clouds.append((pc, mc, fpfh_features(pc, n_c, mc, radius=5 * voxel,
+                                             k=48, dims=(32, 32, 32),
+                                             slots=32)))
+    (sp, sm, sf), (tp, tm, tf) = clouds
+    corr, _ = match_features(sf, sm, tf, tm)
+    gen = _generator("cpu", REG_SEED)
+    ok = sm & (corr >= 0)
+    picks = _choice(ok, 3 * 8192, True, gen).reshape(8192, 3)
+    ev = _choice(ok, 2048, True, gen)
+    rc, rg = both(lambda s_, sm_, t_, tm_, c_, p_, e_: _ransac_from_picks(
+        s_, sm_, t_, tm_, c_, 2.5 * voxel, 0.9, p_, e_),
+        sp, sm, tp, tm, corr, picks, ev)
+    ransac = {"best": [int(rc[3]), int(rg[3])],
+              "T_max_abs": float((rc[0] - rg[0].cpu()).abs().max()),
+              "scores_differ": int((rc[2] != rg[2].cpu()).sum()),
+              "fitness": [float(rc[1]), float(rg[1])]}
+    if ransac["best"][0] != ransac["best"][1] or ransac["T_max_abs"] > 1e-5:
+        raise AssertionError(f"RANSAC on the card vs CPU: {ransac}")
+
+    # the two-level grid query: the source at the truth, 2 mm noise
+    q = torch.from_numpy((src_np @ R.T + t + np.random.default_rng(2).normal(
+        0, 0.002, src_np.shape)).astype(np.float32))
+    gc, gg = both(lambda *a: knn.grid2_query(
+        knn.grid2_build(a[0], a[1], 1.5 * voxel), a[0], a[2], a[3]),
+        tgt, mask, q, mask)
+    nn_c, d_c = gc
+    nn_g, d_g = (v.cpu() for v in gg)
+    two = torch.cat([torch.topk(torch.cdist(q[s:s + 2000], tgt), 2,
+                                largest=False).values
+                     for s in range(0, REG_SMALL, 2000)])
+    clear = (two[:, 1] - two[:, 0]) > 1e-6
+    fin = torch.isfinite(d_c)
+    grid = {"nn_differ_where_clear": int((nn_c != nn_g)[clear].sum()),
+            "nn_differ": int((nn_c != nn_g).sum()),
+            "near_ties": int((~clear).sum()),
+            "dist_max_abs": float((d_c - d_g)[fin].abs().max()),
+            "finite_equal": bool(torch.equal(fin, torch.isfinite(d_g)))}
+    if grid["nn_differ_where_clear"] or grid["dist_max_abs"] > 1e-6 \
+            or not grid["finite_equal"]:
+        raise AssertionError(f"grid2_query on the card vs CPU: {grid}")
+    log({"phase": "registration_vs_cpu", "points": REG_SMALL, "icp": icp,
+         "ransac": ransac, "grid2_query": grid})
+
+
+def capture_phase(dev, gpu_line):
+    """The capture side at 720p: create_masked_pointcloud on the bench
+    frame on the card (peak memory under 40 GB), then its stages on the
+    card against the CPU on one sample each, and the tag-anchored crop
+    around the frame's fused pose on both."""
+    from repas_tpu_torch import pipeline
+    from repas_tpu_torch.cloud.crop import tag_frame_aabb_crop
+    from repas_tpu_torch.cloud.filters import (_choice, _generator,
+                                               _outlier_mask_from_sample,
+                                               voxel_downsample)
+    from repas_tpu_torch.cloud.generate import create_masked_pointcloud
+    from repas_tpu_torch.cloud.normals import _normals_from_sample
+    from repas_tpu_torch.core.config import CropConfig, PipelineConfig
+    from repas_tpu_torch.kernels.pointcloud import rgbd_to_pointcloud
+
+    rgbs, depths, K = bench_frames(1)
+    rgb = torch.from_numpy(rgbs[0])
+    depth = torch.from_numpy(depths[0].astype(np.float32) * np.float32(1e-3))
+    Kt = torch.from_numpy(K)
+    rgb_d, depth_d, K_d = rgb.to(dev), depth.to(dev), Kt.to(dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cloud = create_masked_pointcloud(rgb_d, depth_d, K_d,
+                                     voxel=CAPTURE_VOXEL, with_normals=True)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_valid = int(cloud.valid.sum())
+    # a valid point without 3 neighbours within 2 cm keeps a zero normal;
+    # the others face the camera across the plane z = 0.45 m
+    has_n = cloud.valid & (torch.linalg.vector_norm(cloud.normals, dim=1)
+                           > 0)
+    nz = cloud.normals[has_n][:, 2]
+    if not (1000 < n_valid < H * W and bool(torch.isfinite(
+            cloud.points).all()) and int(has_n.sum()) >= 0.9 * n_valid
+            and bool((nz < -0.99).all()) and peak < 40e9):
+        raise AssertionError(f"create_masked_pointcloud at 720p: {n_valid} "
+                             f"valid, {int(has_n.sum())} with normals, "
+                             f"normals z in [{float(nz.min())}, "
+                             f"{float(nz.max())}], peak {peak} bytes")
+
+    # the stages on the card against the CPU, one sample for both devices
+    def stages(rgb, depth, K):
+        pts, cols, valid = rgbd_to_pointcloud(rgb, depth, K, max_depth=10.0,
+                                              min_depth=0.0)
+        pd, _, _, rep = voxel_downsample(pts, valid, CAPTURE_VOXEL,
+                                         colors=cols)
+        return pd, rep
+
+    pc, rep_c = stages(rgb, depth, Kt)
+    pg, rep_g = (v.cpu() for v in stages(rgb_d, depth_d, K_d))
+    both_rep = rep_c & rep_g
+    mean_err = float((pc - pg)[both_rep].abs().max())
+    idx_o = _choice(rep_c, 2048, False, _generator("cpu", 0))
+    ok_c = _outlier_mask_from_sample(pc, rep_c, idx_o, 20, 2.0)
+    ok_g = _outlier_mask_from_sample(pg.to(dev), rep_g.to(dev),
+                                     idx_o.to(dev), 20, 2.0).cpu()
+    outlier_differ = int((ok_c != ok_g).sum())
+    idx_n = _choice(ok_c, 4096, False, _generator("cpu", 1))
+    n_c, nok_c = _normals_from_sample(pc, ok_c, idx_n, 30, 0.02, None)
+    n_g, nok_g = (v.cpu() for v in _normals_from_sample(
+        pc.to(dev), ok_c.to(dev), idx_n.to(dev), 30, 0.02, None))
+    normals_err = float((n_c - n_g)[nok_c & nok_g].abs().max())
+
+    # the crop around frame 0's fused pose
+    out = pipeline.process_frames(rgb_d[None], torch.from_numpy(
+        depths[:1]).to(dev), K_d, PipelineConfig())
+    R = out.pose.R_avg[0].cpu().numpy()
+    t = out.pose.anchor_P_depth[0].cpu().numpy()      # depth-corrected
+    box = CropConfig(**{f"d{a}_{s}": CAPTURE_BOX for a in "xyz"
+                        for s in ("front", "back")})
+    crop_c = tag_frame_aabb_crop(pc, ok_c, R, t, box)[0]
+    crop_g = tag_frame_aabb_crop(pg.to(dev), ok_c.to(dev), R, t,
+                                 box)[0].cpu()
+    res = {"valid_after_generate": n_valid,
+           "with_normals": int(has_n.sum()), "generate_ms": gen_ms,
+           "peak_mem_bytes": peak, "voxels": int(rep_c.sum()),
+           "rep_differ": int((rep_c != rep_g).sum()),
+           "voxel_mean_max_abs_m": mean_err,
+           "outlier_valid": int(ok_c.sum()),
+           "outlier_differ": outlier_differ,
+           "normals_ok_differ": int((nok_c != nok_g).sum()),
+           "normals_max_abs": normals_err, "crop_kept": int(crop_c.sum()),
+           "crop_differ": int((crop_c != crop_g).sum()),
+           "fused_t": t.tolist(), "gpu": gpu_line}
+    log({"phase": "capture_720p", **res})
+    if (res["rep_differ"] or mean_err > 1e-6
+            or outlier_differ > 1e-3 * int(ok_c.sum())
+            or res["normals_ok_differ"] or normals_err > 1e-4
+            or res["crop_differ"] or not 100 < res["crop_kept"]):
+        raise AssertionError(f"capture stages on the card vs CPU: {res}")
+
+
+def registration_phase(dev, gpu_line):
+    """The point-cloud registration path and the capture side on the
+    card (no kernel of its own)."""
+    registration_1m(dev, gpu_line)
+    registration_vs_cpu(dev)
+    capture_phase(dev, gpu_line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1144,6 +1536,7 @@ def main() -> int:
     with torch.no_grad():
         records += robust_phase(dev, gpu_line)
         records += calibrated_tracking_phase(dev, gpu_line, records)
+        registration_phase(dev, gpu_line)
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -16,11 +16,15 @@ never jax and nothing from ``repas_tpu``:
             multi-tag fusion, tag bundles, register-then-track streaming
   pipeline  ``process_frames``: detect -> PnP -> fusion -> point cloud,
             for an undistorted or a calibrated camera
+  cloud/    grid-hash k-NN, voxel and outlier filters, normals, FPFH +
+            RANSAC, point-to-plane ICP, ``register_clouds``, the
+            tag-anchored crop and masked cloud generation
 
 Entry points that take tensors run where their inputs lie. Entry points
 that take host data (``pose.track.TagTracker``, the YUV formats of
-``kernels.color.frame_to_rgb``) run on the card unless given ``device``,
-and raise without one (``core/device.py``).
+``kernels.color.frame_to_rgb``, numpy clouds given to
+``cloud.register_clouds`` / ``global_register_fpfh``) run on the card
+unless given ``device``, and raise without one (``core/device.py``).
 """
 
 __version__ = "0.1.0"
@@ -28,3 +32,32 @@ __version__ = "0.1.0"
 from repas_tpu_torch.core.precision import set_precision_policy
 
 set_precision_policy()
+
+from repas_tpu_torch.core.transforms import (  # noqa: E402
+    R_to_euler_zyx, T_rotate_about_point, T_scale_about_point, T_translate,
+    apply_T, cv_to_o3d_R, cv_to_o3d_t, euler_zyx_to_R, invert_T,
+    is_valid_transform, make_T, quat_multiply, rotation_angle_deg,
+    tag_local_to_camera)
+from repas_tpu_torch.cloud import (  # noqa: E402
+    aabb_mask, compact_masked, create_masked_pointcloud, estimate_normals,
+    estimate_normals_grid, global_register_fpfh, grid_hash_build,
+    grid_hash_query, grid_hash_query_knn, icp_point_to_plane, knn_neighbors,
+    nearest_neighbors, obb_from_tag, radius_mask, register_clouds,
+    statistical_outlier_mask, tag_frame_aabb_crop, voxel_downsample)
+from repas_tpu_torch.cloud.registration import (  # noqa: E402
+    ICPResult, evaluate_registration)
+
+__all__ = [
+    "set_precision_policy", "quat_multiply", "euler_zyx_to_R",
+    "R_to_euler_zyx", "make_T", "T_translate", "T_rotate_about_point",
+    "T_scale_about_point", "apply_T", "invert_T", "cv_to_o3d_R",
+    "cv_to_o3d_t", "tag_local_to_camera", "rotation_angle_deg",
+    "is_valid_transform", "radius_mask", "statistical_outlier_mask",
+    "voxel_downsample", "compact_masked", "estimate_normals",
+    "estimate_normals_grid", "grid_hash_build", "grid_hash_query",
+    "grid_hash_query_knn", "knn_neighbors", "nearest_neighbors",
+    "tag_frame_aabb_crop", "aabb_mask", "obb_from_tag",
+    "create_masked_pointcloud", "global_register_fpfh",
+    "icp_point_to_plane", "register_clouds", "evaluate_registration",
+    "ICPResult",
+]

@@ -1,8 +1,10 @@
 """Dataclass config tree for the frame pipeline.
 
 Port of ``repas_tpu/core/config.py`` (``DetectorConfig``, ``PnPConfig``,
-``DepthConfig``, ``CadConfig``, ``PipelineConfig``): the same fields and
-defaults, limited to the sub-configs the frame pipeline reads.
+``DepthConfig``, ``ICPConfig``, ``RansacConfig``, ``CropConfig``,
+``CadConfig``, ``PipelineConfig``): the same fields and defaults, limited
+to the sub-configs the ported paths read (frame pipeline, registration,
+crop).
 ``from_reference`` builds this tree, and ``tracker_config_from_reference``
 the tracker's ``TrackerConfig``, from ``dataclasses.asdict`` of a
 ``repas_tpu`` config, so both packages can run the same knobs (the
@@ -58,6 +60,47 @@ class DepthConfig:
 
 
 @dataclass(frozen=True)
+class ICPConfig:
+    """Point-to-plane ICP (the reference's Open3D defaults)."""
+
+    max_corr_dist: float = 0.05
+    max_iters: int = 100
+    rel_tol: float = 1e-6
+    cad_samples: int = 50_000
+    scene_voxel: float = 0.005
+    normal_radius: float = 0.02
+    normal_max_nn: int = 30
+
+
+@dataclass(frozen=True)
+class RansacConfig:
+    """Global registration (FPFH + RANSAC)."""
+
+    voxel_frac_of_diag: float = 0.02
+    max_points: int = 1_000_000
+    fpfh_radius_mult: float = 5.0
+    max_iterations: int = 200_000
+    edge_length_check: float = 0.9
+    dist_check_mult: float = 2.5
+    hypothesis_batch: int = 8192        # hypotheses scored in one batch
+
+
+@dataclass(frozen=True)
+class CropConfig:
+    """Tag-anchored AABB crop: box offsets in the tag-local frame, m."""
+
+    tag_ids: Tuple[int, ...] = (9, 16)
+    anchor_id: int = 16
+    dx_front: float = 0.0
+    dx_back: float = 0.0
+    dy_front: float = 0.0
+    dy_back: float = 0.0
+    dz_front: float = 0.0
+    dz_back: float = 0.0
+    pad_m: float = 0.0
+
+
+@dataclass(frozen=True)
 class CadConfig:
     """CAD placement."""
 
@@ -70,11 +113,14 @@ class CadConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """Top-level config tree of the frame pipeline."""
+    """Top-level config tree of the ported paths."""
 
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     pnp: PnPConfig = field(default_factory=PnPConfig)
     depth: DepthConfig = field(default_factory=DepthConfig)
+    icp: ICPConfig = field(default_factory=ICPConfig)
+    ransac: RansacConfig = field(default_factory=RansacConfig)
+    crop: CropConfig = field(default_factory=CropConfig)
     cad: CadConfig = field(default_factory=CadConfig)
     tag_ids: Tuple[int, ...] = (9, 16)
     anchor_id: int = 16
@@ -90,13 +136,15 @@ def _build(cls, d: dict):
 
 def from_reference(cfg_dict: dict) -> PipelineConfig:
     """PipelineConfig from ``dataclasses.asdict`` of a repas_tpu
-    ``PipelineConfig``. Sub-configs the frame pipeline does not read
-    (icp, ransac, canopy, ...) are ignored; a missing field raises
-    KeyError."""
+    ``PipelineConfig``. Sub-configs no ported path reads (canopy,
+    calibration) are ignored; a missing field raises KeyError."""
     return PipelineConfig(
         detector=_build(DetectorConfig, cfg_dict["detector"]),
         pnp=_build(PnPConfig, cfg_dict["pnp"]),
         depth=_build(DepthConfig, cfg_dict["depth"]),
+        icp=_build(ICPConfig, cfg_dict["icp"]),
+        ransac=_build(RansacConfig, cfg_dict["ransac"]),
+        crop=_build(CropConfig, cfg_dict["crop"]),
         cad=_build(CadConfig, cfg_dict["cad"]),
         tag_ids=tuple(cfg_dict["tag_ids"]),
         anchor_id=cfg_dict["anchor_id"],

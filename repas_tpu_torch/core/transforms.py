@@ -1,11 +1,11 @@
-"""SO(3) helpers, quaternion averaging and the unit-square homography.
+"""SO(3) / SE(3) helpers, quaternions, frame conventions and the
+unit-square homography.
 
-Port of ``repas_tpu/core/transforms.py`` (``skew``, ``rodrigues``,
-``rodrigues_inv``, ``R_to_quat``, ``quat_to_R``,
-``average_rotations_quat``, ``flip_z_180``,
-``homography_from_unit_square``). The reference writes most of these for
-one matrix and vmaps them; here every function broadcasts over leading
-dimensions, written out.
+Port of ``repas_tpu/core/transforms.py``. The reference writes most of
+these for one matrix and vmaps them; here every function broadcasts over
+leading dimensions, written out: rotations (...,3,3), 4x4 transforms
+(...,4,4), vectors (...,3). ``apply_T`` and ``tag_local_to_camera`` take
+point sets (...,N,3) against one transform per leading index.
 """
 from __future__ import annotations
 
@@ -112,6 +112,18 @@ def quat_to_R(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (...,4) (w,x,y,z) quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def average_rotations_quat(Rs: torch.Tensor, weights: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """Weighted hemisphere-aligned quaternion average.
@@ -138,6 +150,124 @@ def average_rotations_quat(Rs: torch.Tensor, weights: torch.Tensor,
     q_avg = q_avg / (torch.linalg.vector_norm(q_avg, dim=-1, keepdim=True)
                      + _EPS)
     return quat_to_R(q_avg)
+
+
+def _f32(x) -> torch.Tensor:
+    """A tensor as given; anything else as a float32 tensor."""
+    return x if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.float32)
+
+
+def euler_zyx_to_R(z_deg, y_deg, x_deg) -> torch.Tensor:
+    """R = Rz @ Ry @ Rx from degrees (float32; broadcasts the angles)."""
+    z, y, x = (torch.deg2rad(_f32(a).to(torch.float32))
+               for a in (z_deg, y_deg, x_deg))
+    z, y, x = torch.broadcast_tensors(z, y, x)
+    cz, sz = torch.cos(z), torch.sin(z)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cx, sx = torch.cos(x), torch.sin(x)
+    one = torch.ones_like(cz)
+    zero = torch.zeros_like(cz)
+    Rz = torch.stack([torch.stack([cz, -sz, zero], -1),
+                      torch.stack([sz, cz, zero], -1),
+                      torch.stack([zero, zero, one], -1)], -2)
+    Ry = torch.stack([torch.stack([cy, zero, sy], -1),
+                      torch.stack([zero, one, zero], -1),
+                      torch.stack([-sy, zero, cy], -1)], -2)
+    Rx = torch.stack([torch.stack([one, zero, zero], -1),
+                      torch.stack([zero, cx, -sx], -1),
+                      torch.stack([zero, sx, cx], -1)], -2)
+    return Rz @ Ry @ Rx
+
+
+def R_to_euler_zyx(R: torch.Tensor):
+    """Rotation (...,3,3) -> (z, y, x) degrees, ZYX convention."""
+    y = torch.arcsin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    z = torch.arctan2(R[..., 1, 0], R[..., 0, 0])
+    x = torch.arctan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.rad2deg(z), torch.rad2deg(y), torch.rad2deg(x)
+
+
+def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) rotation + (...,3) translation -> (...,4,4), R's dtype."""
+    R, t = _f32(R), _f32(t)
+    lead = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    top = torch.cat([R.expand(*lead, 3, 3),
+                     t.to(R.dtype).expand(*lead, 3)[..., None]], dim=-1)
+    bottom = const(((0.0, 0.0, 0.0, 1.0),), R.dtype, R.device)
+    return torch.cat([top, bottom.expand(*lead, 1, 4)], dim=-2)
+
+
+def T_translate(t) -> torch.Tensor:
+    t = _f32(t)
+    return make_T(torch.eye(3, dtype=t.dtype, device=t.device), t)
+
+
+def T_rotate_about_point(R, p) -> torch.Tensor:
+    """Rotate by R about fixed point p: x -> R (x - p) + p."""
+    R = _f32(R)
+    p = _f32(p).to(R.dtype)
+    return make_T(R, p - (R @ p[..., None])[..., 0])
+
+
+def T_scale_about_point(s, p) -> torch.Tensor:
+    """Uniform scale s about fixed point p: x -> s (x - p) + p."""
+    p = _f32(p)
+    s = torch.as_tensor(s, dtype=p.dtype, device=p.device)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device)
+    return make_T(eye * s[..., None, None], p - s[..., None] * p)
+
+
+def apply_T(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (...,4,4) transforms to point sets (...,N,3), or to one
+    point (3,)."""
+    one = pts.dim() == 1
+    p = pts[None] if one else pts
+    out = p @ T[..., :3, :3].mT + T[..., None, :3, 3]
+    return out[..., 0, :] if one else out
+
+
+def invert_T(T: torch.Tensor) -> torch.Tensor:
+    Rt = T[..., :3, :3].mT
+    return make_T(Rt, -(Rt @ T[..., :3, 3, None])[..., 0])
+
+
+# OpenCV camera frame (x right, y down, z forward) <-> Open3D viewer frame
+# (x right, y up, z backward): S = diag(1,-1,-1). S @ R @ S only flips the
+# signs of R's off-block entries, so it is written as that product.
+_S_CV_O3D_SIGNS = ((1.0, -1.0, -1.0), (-1.0, 1.0, 1.0), (-1.0, 1.0, 1.0))
+
+
+def cv_to_o3d_R(R: torch.Tensor) -> torch.Tensor:
+    return R * const(_S_CV_O3D_SIGNS, R.dtype, R.device)
+
+
+def cv_to_o3d_t(t: torch.Tensor) -> torch.Tensor:
+    t = _f32(t)
+    return t * const((1.0, -1.0, -1.0), t.dtype, t.device)
+
+
+def tag_local_to_camera(p_local: torch.Tensor, R: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+    """Points (...,3) from the tag-local to the camera frame."""
+    return _f32(p_local) @ R.mT + t
+
+
+def rotation_angle_deg(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between rotations (...,3,3), in degrees."""
+    Rrel = Ra.mT @ Rb
+    tr = Rrel[..., 0, 0] + Rrel[..., 1, 1] + Rrel[..., 2, 2]
+    c = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(c))
+
+
+def is_valid_transform(T, tol: float = 1e-6):
+    """(det(R) ~ 1 and R R^T ~ I, ||R R^T - I||_F) for (...,4,4) T; both
+    checks at 1e-3, as in the reference (which ignores `tol`)."""
+    R = _f32(T)[..., :3, :3]
+    det_ok = torch.abs(torch.linalg.det(R) - 1.0) < 1e-3
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    ortho = torch.linalg.matrix_norm(R @ R.mT - eye)
+    return det_ok & (ortho < 1e-3), ortho
 
 
 def flip_z_180(R: torch.Tensor) -> torch.Tensor:

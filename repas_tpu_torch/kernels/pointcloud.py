@@ -92,15 +92,19 @@ def fused_pointcloud(depth_u16: torch.Tensor, rgb: torch.Tensor,
 
 
 def rgbd_to_pointcloud(rgb: torch.Tensor, depth_m: torch.Tensor,
-                       K: torch.Tensor, min_depth: float = 1e-6,
+                       K: torch.Tensor, mask: torch.Tensor | None = None,
+                       min_depth: float = 1e-6,
                        max_depth: float = float("inf")):
-    """RGB (...,H,W,3) uint8 + aligned depth (...,H,W) meters -> flat
-    colored cloud (points (...,H*W,3), colors (...,H*W,3) in [0,1],
-    valid (...,H*W) bool); invalid slots hold zeros. The reference's XLA
-    deprojection: x = (u-cx)/fx*z."""
+    """RGB (...,H,W,3) uint8 + aligned depth (...,H,W) meters (+ optional
+    (...,H,W) mask, kept where > 0) -> flat colored cloud (points
+    (...,H*W,3), colors (...,H*W,3) in [0,1], valid (...,H*W) bool);
+    invalid slots hold zeros. The reference's XLA deprojection:
+    x = (u-cx)/fx*z."""
     pts = depth_image_to_points(depth_m, K)
     valid = (depth_m > min_depth) & (depth_m < max_depth) & \
         torch.isfinite(depth_m)
+    if mask is not None:
+        valid = valid & (mask > 0)
     pts = torch.where(valid[..., None], pts, 0.0)
     cols = torch.where(valid[..., None], rgb.to(torch.float32) / 255.0, 0.0)
     lead = depth_m.shape[:-2]

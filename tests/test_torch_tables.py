@@ -32,7 +32,8 @@ def test_code_to_bits_equals_reference(tag_id):
 
 def _knobs(cfg):
     return {name: dataclasses.asdict(getattr(cfg, name))
-            for name in ("detector", "pnp", "depth", "cad")} | {
+            for name in ("detector", "pnp", "depth", "icp", "ransac", "crop",
+                         "cad")} | {
         "tag_ids": tuple(cfg.tag_ids), "anchor_id": cfg.anchor_id}
 
 
@@ -46,6 +47,10 @@ def test_from_reference_round_trip(changed):
                                          ccl_iters=3, quad_decimate=1.0),
             pnp=dataclasses.replace(ref.pnp, tag_size_m=0.05),
             depth=dataclasses.replace(ref.depth, center_win=7),
+            icp=dataclasses.replace(ref.icp, max_iters=30, rel_tol=1e-5),
+            ransac=dataclasses.replace(ref.ransac, hypothesis_batch=1024),
+            crop=dataclasses.replace(ref.crop, dx_front=0.1, tag_ids=(5,),
+                                     pad_m=0.01),
             cad=dataclasses.replace(ref.cad, flip_z_tag_ids=(9, 3)),
             tag_ids=(1, 2, 3), anchor_id=2)
     port = tcfg.from_reference(dataclasses.asdict(ref))

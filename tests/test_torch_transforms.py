@@ -89,3 +89,124 @@ def test_project_points_vs_reference():
     got = TP.project_points(torch.from_numpy(pts), torch.from_numpy(rv),
                             torch.from_numpy(tv), torch.from_numpy(K))
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+
+
+# Tolerance of the SE(3) and frame helpers: exact where the reference
+# multiplies by +-1 or builds matrices; within one float32 ulp of 1
+# (1.19e-7 absolute, on unit-scale entries) where a 3x3 product or a
+# transcendental function rounds; degrees within 1e-5 (one ulp at 100).
+ULP1 = float(np.spacing(np.float32(1.0)))
+
+
+def _rots(seed, n):
+    return np.array(jax.vmap(J.rodrigues)(jnp.asarray(_rvecs(seed, n))))
+
+
+def test_quat_multiply_vs_reference():
+    rng = np.random.default_rng(10)
+    a = rng.normal(size=(32, 4)).astype(np.float32)
+    b = rng.normal(size=(32, 4)).astype(np.float32)
+    ref = np.asarray(J.quat_multiply(jnp.asarray(a), jnp.asarray(b)))
+    got = T.quat_multiply(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_euler_vs_reference():
+    rng = np.random.default_rng(11)
+    z, y, x = (rng.uniform(-170, 170, 40).astype(np.float32)
+               for _ in range(3))
+    y[:2] = [90.0, -90.0]                        # gimbal lock
+    ref = np.asarray(J.euler_zyx_to_R(z, y, x))
+    got = T.euler_zyx_to_R(torch.from_numpy(z), torch.from_numpy(y),
+                           torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=ULP1)
+    one = T.euler_zyx_to_R(30.0, -20.0, 10.0).numpy()
+    np.testing.assert_allclose(one, np.asarray(J.euler_zyx_to_R(
+        30.0, -20.0, 10.0)), rtol=0, atol=ULP1)
+    Rs = _rots(12, 40)
+    for g, r in zip(T.R_to_euler_zyx(torch.from_numpy(Rs)),
+                    J.R_to_euler_zyx(jnp.asarray(Rs))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-5)
+
+
+def test_se3_builders_vs_reference():
+    rng = np.random.default_rng(13)
+    Rs = _rots(14, 8)
+    ts = rng.normal(size=(8, 3)).astype(np.float32)
+    ps = rng.normal(size=(8, 3)).astype(np.float32)
+    pts = rng.normal(size=(50, 3)).astype(np.float32)
+    for R, t, p in zip(Rs, ts, ps):
+        Tj = np.asarray(J.make_T(jnp.asarray(R), jnp.asarray(t)))
+        Tt = T.make_T(torch.from_numpy(R), torch.from_numpy(t))
+        np.testing.assert_array_equal(Tt.numpy(), Tj)
+        np.testing.assert_array_equal(T.T_translate(t).numpy(),
+                                      np.asarray(J.T_translate(t)))
+        np.testing.assert_allclose(
+            T.T_rotate_about_point(torch.from_numpy(R),
+                                   torch.from_numpy(p)).numpy(),
+            np.asarray(J.T_rotate_about_point(jnp.asarray(R),
+                                              jnp.asarray(p))),
+            rtol=0, atol=4 * ULP1)
+        np.testing.assert_array_equal(
+            T.T_scale_about_point(1.7, torch.from_numpy(p)).numpy(),
+            np.asarray(J.T_scale_about_point(1.7, jnp.asarray(p))))
+        np.testing.assert_allclose(
+            T.apply_T(Tt, torch.from_numpy(pts)).numpy(),
+            np.asarray(J.apply_T(jnp.asarray(Tj), jnp.asarray(pts))),
+            rtol=0, atol=4 * ULP1)
+        np.testing.assert_allclose(T.invert_T(Tt).numpy(),
+                                   np.asarray(J.invert_T(jnp.asarray(Tj))),
+                                   rtol=0, atol=4 * ULP1)
+    # batched: one transform per leading index
+    Tb = T.make_T(torch.from_numpy(Rs), torch.from_numpy(ts))
+    ref = np.stack([np.asarray(J.make_T(jnp.asarray(R), jnp.asarray(t)))
+                    for R, t in zip(Rs, ts)])
+    np.testing.assert_array_equal(Tb.numpy(), ref)
+    got = T.apply_T(Tb, torch.from_numpy(pts)[None].expand(8, -1, -1))
+    for i in range(8):
+        np.testing.assert_allclose(
+            got[i].numpy(), np.asarray(J.apply_T(jnp.asarray(ref[i]),
+                                                 jnp.asarray(pts))),
+            rtol=0, atol=4 * ULP1)
+
+
+def test_frames_and_validity_vs_reference():
+    rng = np.random.default_rng(15)
+    Rs = _rots(16, 8)
+    ts = rng.normal(size=(8, 3)).astype(np.float32)
+    local = rng.normal(size=(6, 3)).astype(np.float32) * 0.05
+    for R, t in zip(Rs, ts):
+        np.testing.assert_array_equal(
+            T.cv_to_o3d_R(torch.from_numpy(R)).numpy(),
+            np.asarray(J.cv_to_o3d_R(jnp.asarray(R))))
+        np.testing.assert_array_equal(
+            T.cv_to_o3d_t(torch.from_numpy(t)).numpy(),
+            np.asarray(J.cv_to_o3d_t(jnp.asarray(t))))
+        np.testing.assert_allclose(
+            T.tag_local_to_camera(torch.from_numpy(local),
+                                  torch.from_numpy(R),
+                                  torch.from_numpy(t)).numpy(),
+            np.asarray(J.tag_local_to_camera(jnp.asarray(local),
+                                             jnp.asarray(R),
+                                             jnp.asarray(t))),
+            rtol=0, atol=4 * ULP1)
+    got = T.rotation_angle_deg(torch.from_numpy(Rs[:-1]),
+                               torch.from_numpy(Rs[1:])).numpy()
+    ref = [float(J.rotation_angle_deg(jnp.asarray(a), jnp.asarray(b)))
+           for a, b in zip(Rs[:-1], Rs[1:])]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    good = np.asarray(J.make_T(jnp.asarray(Rs[0]), jnp.asarray(ts[0])))
+    skewed = good.copy()
+    skewed[0, 1] += 0.05                         # not orthogonal
+    flipped = good.copy()
+    flipped[:3, 2] *= -1                         # det -1
+    for Tm in (good, skewed, flipped):
+        ok_j, ortho_j = J.is_valid_transform(jnp.asarray(Tm))
+        ok_t, ortho_t = T.is_valid_transform(torch.from_numpy(Tm))
+        assert bool(ok_t) == bool(ok_j)
+        np.testing.assert_allclose(float(ortho_t), float(ortho_j), rtol=0,
+                                   atol=4 * ULP1)
+    ok_t, _ = T.is_valid_transform(torch.from_numpy(
+        np.stack([good, skewed, flipped])))
+    assert ok_t.tolist() == [True, False, False]
