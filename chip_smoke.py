@@ -59,7 +59,23 @@
    frame (5 mm voxels, default outlier removal, normals) with its peak
    memory (under 40 GB), then its stages on the card against the CPU on
    one sample, and the tag-anchored crop around the frame's fused pose;
-8. prints one JSON line of kernel results, then, last, one JSON line
+8. the cad_chain phase: the port's six CLIs (repas_tpu_torch.apps), called
+   in-process on the card on one 1280x720 capture written under a
+   temporary directory (PNGs from the standard library's zlib, so the log
+   names the codec that decoded them): generate_pointcloud (5 mm voxels,
+   normals), crop_scene around tag 16, a CAD made from the crop in the
+   tag's frame (mm), place_cad --icp (default ICPConfig), ply_to_stl on
+   the crop (poisson at dim 128 and 256, alpha, bpa), apply_6dof --icp
+   with the alpha mesh and the placement as its pose, refine_icp --global
+   from the placed CAD moved by a known motion. Each app is timed after
+   one warm call. Gates: the placed CAD within 5 mm of the crop
+   (median), place_cad's ICP (fitness > 0.9, under 1 degree and 5 mm),
+   the known motion recovered, every STL non-empty and the Poisson meshes
+   on the crop, the sidecars' kinds, B1 and B2 launched by crop_scene and
+   place_cad and held exactly against their plain versions on the
+   phase's first inputs; then the Poisson grid, refine_with_icp on one
+   normals sample and ball pivoting on the card against the CPU;
+9. prints one JSON line of kernel results, then, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -67,11 +83,15 @@ result line. It needs one CUDA device and refuses to run without one.
 """
 from __future__ import annotations
 
+import argparse
+import importlib.util
 import json
+import struct
 import subprocess
 import sys
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -142,6 +162,32 @@ REG_SMALL_ICP_ITERS = 30       # bounds the CPU side's time
 REG_SINGLE_RUN_S = 60.0        # a run longer than this is timed once
 CAPTURE_VOXEL = 0.005
 CAPTURE_BOX = 0.1              # +-0.1 m around the tag, every axis
+# cad_chain phase: one 1280x720 capture at the bench intrinsics: 60 mm
+# tags 9 and 16 on a plane at 0.5 m, two Gaussian bumps of unequal size
+# (centre x, y, sigma, height in m) in front of the plane below tag 16,
+# so that ICP is pinned in every direction; the crop around tag 16 (in
+# its frame: x +-5 cm, y -3..+10 cm, z -6..+1 cm) holds the tag, the
+# plane and both bumps
+CAD_K = ROBUST_K
+CAD_TAG, CAD_Z = 0.06, 0.5
+CAD_TAGS = {9: (-0.12, -0.03), 16: (0.08, -0.03)}
+CAD_BUMPS = ((0.065, 0.035, 0.012, 0.02), (0.105, 0.045, 0.01, 0.015))
+CAD_CROP = ["--dx", "0.05", "0.05", "--dy", "0.1", "0.03", "--dz", "0.01",
+            "0.06"]
+CAD_POINTS = 30_000            # the CAD: the crop subsampled to >= this
+CAD_MOVE_RV = (0.05, -0.03, 0.06)      # refine_icp --global's known motion
+CAD_MOVE_T = (0.012, -0.008, 0.006)
+CAD_REG_T_MM, CAD_REG_R_DEG = 2.0, 0.5
+CAD_VS_CPU_SAMPLES = 20_000    # refine_with_icp card-vs-CPU check,
+CAD_VS_CPU_ICP_ITERS = 30      # a fixed count of ICP iterations
+# ICP on the card against the CPU on the crop: measured 3.7e-6 m and
+# 0.0023 degrees apart after 30 iterations (6.2e-6 m when each stopped
+# by itself, after 18 and 100). The crop is a pixel grid of mm-quantized
+# depths, full of near-tied neighbours, and the card's voxel means differ
+# from the CPU's by ulps (atomics), which flips such ties; on the smooth
+# 20k-point pair of registration_vs_cpu the two agree within 1e-8 m
+CAD_ICP_T_M, CAD_ICP_R_DEG = 2e-5, 0.01
+CAD_BPA_STRIDE = 4             # ball_pivot card-vs-CPU on every 4th point
 
 
 def log(obj) -> None:
@@ -1446,7 +1492,411 @@ def registration_phase(dev, gpu_line):
     capture_phase(dev, gpu_line)
 
 
-def main() -> int:
+# --- cad_chain: the CAD-placement and reconstruction path ------------------
+
+def write_png(path, arr) -> None:
+    """A PNG of uint8 gray/RGB or uint16 gray `arr`, filter 0, written with
+    the standard library (zlib, struct): the smoke's inputs do not depend
+    on the port's writer or on PIL."""
+    arr = np.ascontiguousarray(arr)
+    h, w = arr.shape[:2]
+    bits = 16 if arr.dtype == np.uint16 else 8
+    ctype = 2 if arr.ndim == 3 else 0
+    rows = (arr.astype(">u2") if bits == 16 else arr).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          rows.view(np.uint8)], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def cad_scene_depth():
+    """(H,W) z in metres: the plane z = CAD_Z with CAD_BUMPS toward the
+    camera (a fixed point along each pixel's ray)."""
+    K = CAD_K.astype(np.float64)
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    rx, ry = (u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1]
+    z = np.full((H, W), CAD_Z)
+    for _ in range(12):
+        z = CAD_Z - sum(hgt * np.exp(-((rx * z - bx) ** 2 + (ry * z - by) ** 2)
+                                     / (2 * s * s))
+                        for bx, by, s, hgt in CAD_BUMPS)
+    return z
+
+
+def cad_scene(d):
+    """Writes the capture into directory d: rgb.png (1280x720, tags 9 and
+    16 on the plane, tag 9 mounted upside down as the fusion's flip
+    expects), depth.png (u16 mm, 0.5 mm noise), K.json (lean schema)."""
+    import pathlib
+
+    d = pathlib.Path(d)
+    img = np.full((H, W), 180.0, np.float32)
+    for tid, (x, y) in CAD_TAGS.items():
+        R = np.diag([-1.0, -1.0, 1.0]) if tid == 9 else np.eye(3)
+        win = render_window(tid, R, np.array([x, y, CAD_Z]), CAD_K, CAD_TAG,
+                            260, supersample=2)
+        img = np.where(win != 180.0, win, img)
+    write_png(d / "rgb.png", noisy_rgb(img[None], seed=3)[0])
+    rng = np.random.default_rng(3)
+    depth = cad_scene_depth() + rng.normal(0, 0.0005, (H, W))
+    write_png(d / "depth.png", np.round(depth * 1000).astype(np.uint16))
+    K = CAD_K
+    (d / "K.json").write_text(json.dumps(
+        {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]),
+         "cy": float(K[1, 2]), "width": W, "height": H}))
+    return d
+
+
+def motion_error(T, placed):
+    """(t error mm, R error deg) of a registration T of the moved CAD
+    against the inverse of the known motion (CAD_MOVE_RV, CAD_MOVE_T)
+    about the placed CAD's centroid."""
+    Rm = rotation(CAD_MOVE_RV).astype(np.float64)
+    c = np.asarray(placed, np.float64).mean(0)
+    back_t = c - Rm.T @ (c + np.asarray(CAD_MOVE_T))
+    T = np.asarray(T, np.float64)
+    return (float(np.linalg.norm(T[:3, 3] - back_t)) * 1000,
+            angle_deg(T[:3, :3], Rm.T))
+
+
+def nn_dist(a, b, chunk=4096):
+    """Distance from each row of a (N,3) to its nearest row of b, on the
+    card (a brute-force check, not the port's code)."""
+    a = torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    b = torch.as_tensor(np.asarray(b, np.float32), device="cuda")
+    return torch.cat([torch.cdist(a[s:s + chunk], b).amin(1)
+                      for s in range(0, len(a), chunk)]).cpu().numpy()
+
+
+def cad_chain_apps(d):
+    """The six CLIs on the capture in d, each timed after one warm call,
+    with B1's and B2's launches counted around the timed crop_scene and
+    place_cad. Returns (timings, launches, captured B1/B2 inputs, ICP
+    timing, crop meta, placement meta, the crop rows the CAD took)."""
+    from repas_tpu_torch.apps import (apply_6dof, crop_scene,
+                                      generate_pointcloud, place_cad,
+                                      ply_to_stl, refine_icp)
+    from repas_tpu_torch.io.meta import read_meta
+    from repas_tpu_torch.io.ply import (PointCloud, read_geometry, write_ply,
+                                        write_stl)
+    from repas_tpu_torch.io.pose_txt import save_transform_txt
+    from repas_tpu_torch.kernels import _build, ccl_cuda, patch_extract
+
+    src = ["--color", str(d / "rgb.png"), "--depth", str(d / "depth.png"),
+           "--intrinsics", str(d / "K.json")]
+    ms, launches, icp_calls = {}, {}, []
+
+    def run(name, app, argv, counted=False):
+        app.main(argv)                                        # warm
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        app.main(argv)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if counted:
+            launches[name] = {k: _build.launches[k]
+                              for k in ("ccl", "patch_extract")}
+
+    run("generate_pointcloud", generate_pointcloud,
+        src + ["--out", str(d / "scene.ply"), "--voxel", "0.005",
+               "--normals"])
+    with Capture(ccl_cuda, "connected_components_cuda") as c1, \
+            Capture(patch_extract, "extract_windows") as c2:
+        crop_scene.main(src + ["--out", str(d / "crop.ply"),
+                               "--tag-size", str(CAD_TAG), *CAD_CROP])
+        torch.cuda.synchronize()
+    captured = (c1.args, c2.args)
+    run("crop_scene", crop_scene, src + ["--out", str(d / "crop.ply"),
+                                         "--tag-size", str(CAD_TAG),
+                                         *CAD_CROP], counted=True)
+    crop = read_geometry(d / "crop.ply")
+    cmeta = read_meta(d / "crop.meta.json")
+
+    # the CAD: the crop mapped into tag 16's frame in mm, subsampled
+    R = np.asarray(cmeta["R_anchor"], np.float64)
+    P = np.asarray(cmeta["anchor_P_depth"], np.float64)
+    pts = np.asarray(crop.points, np.float64)
+    sel = np.arange(len(pts))[::max(1, len(pts) // CAD_POINTS)]
+    write_ply(d / "cad.ply", PointCloud(points=((pts[sel] - P) @ R / 0.001
+                                                ).astype(np.float32)))
+    orig = place_cad.refine_with_icp
+
+    def timed_icp(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep, T = orig(*a, **k)
+        icp_calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "iterations": rep["iterations"]})
+        return rep, T
+
+    place_cad.refine_with_icp = timed_icp
+    try:
+        run("place_cad", place_cad,
+            src + ["--cad", str(d / "cad.ply"), "--out",
+                   str(d / "placed.ply"), "--tag-size", str(CAD_TAG),
+                   "--tag-ids", "16", "--icp"], counted=True)
+    finally:
+        place_cad.refine_with_icp = orig
+    pmeta = read_meta(d / "placed.meta.json")
+
+    # ply_to_stl on the crop: warm with the default, then each method
+    ply_to_stl.main([str(d / "crop.ply"), str(d / "warm.stl")])
+    for name, extra in (("poisson_128", ["--dim", "128"]),
+                        ("poisson_256", ["--dim", "256"]),
+                        ("alpha", ["--method", "alpha"]),
+                        ("bpa", ["--method", "bpa"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ply_to_stl.main([str(d / "crop.ply"), str(d / f"{name}.stl"),
+                         *extra])
+        torch.cuda.synchronize()
+        ms[f"ply_to_stl_{name}"] = (time.perf_counter() - t0) * 1e3
+
+    # apply_6dof: the alpha mesh in the tag frame (mm) as the CAD, the
+    # placement as the pose (T_cad_world @ diag(1000): the tag's pose)
+    mesh = read_geometry(d / "alpha.stl")
+    mesh.vertices = (mesh.vertices - P) @ R / 0.001
+    write_stl(d / "alpha_cad.stl", mesh)
+    save_transform_txt(d / "pose.txt", np.asarray(pmeta["T_cad_world"])
+                       @ np.diag([1000.0, 1000.0, 1000.0, 1.0]))
+    run("apply_6dof", apply_6dof,
+        ["--pose", str(d / "pose.txt"), "--cad", str(d / "alpha_cad.stl"),
+         "--out", str(d / "posed.ply"), "--icp", "--scene",
+         str(d / "crop.ply")])
+
+    # refine_icp --global: the placed CAD moved by a known motion about its
+    # centroid, registered back onto the crop
+    placed = read_geometry(d / "placed.ply").points
+    Rm = rotation(CAD_MOVE_RV).astype(np.float64)
+    c = placed.mean(0)
+    write_ply(d / "moved.ply", PointCloud(points=(placed - c) @ Rm.T + c
+                                          + CAD_MOVE_T))
+    run("refine_icp", refine_icp,
+        ["--source", str(d / "moved.ply"), "--target", str(d / "crop.ply"),
+         "--out", str(d / "registered.ply"), "--json", str(d / "reg.json"),
+         "--global"])
+    return ms, launches, captured, icp_calls, cmeta, pmeta, sel
+
+
+def cad_chain_vs_cpu(d, dev):
+    """Card against the port on the CPU on the chain's own data: the
+    Poisson grid at dim 128, refine_with_icp fed one normals sample, and
+    ball pivoting's face set."""
+    from repas_tpu_torch.cloud import cad, reconstruct
+    from repas_tpu_torch.cloud.filters import _choice, _generator
+    from repas_tpu_torch.cloud.normals import (_normals_from_sample,
+                                               estimate_normals)
+    from repas_tpu_torch.core.config import ICPConfig
+    from repas_tpu_torch.io.ply import PointCloud, read_geometry
+
+    pts = np.asarray(read_geometry(d / "crop.ply").points, np.float32)
+    ones = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    nrm, _ = estimate_normals(torch.from_numpy(pts).to(dev), ones,
+                              camera=pts.mean(0) - [0, 0, 1.0])
+    lo, hi = pts.min(0), pts.max(0)
+    span = float((hi - lo).max()) * 1.2
+    lo, cell = (lo + hi) / 2 - span / 2, span / 128
+    args = (torch.from_numpy(pts), nrm.cpu(), ones.cpu())
+    cc = reconstruct.poisson_indicator_grid(*args, lo, cell, dim=128)
+    cg = reconstruct.poisson_indicator_grid(*(a.to(dev) for a in args), lo,
+                                            cell, dim=128).cpu()
+    # a grid value within rounding of 0 may change sign: reported only
+    chi_rel = float((cc - cg).abs().max() / cc.abs().max())
+    chi_flips = int(((cc > 0) != (cg > 0)).sum())
+
+    # refine_with_icp, both devices on one normals sample
+    placed = read_geometry(d / "placed.ply").points
+    fixed = {}
+
+    def one_sample(p, mask, k=30, radius=0.02, **_):
+        if "idx" not in fixed:
+            fixed["idx"] = _choice(mask.cpu(), min(4096, len(mask)), False,
+                                   _generator("cpu", 1))
+        return _normals_from_sample(p, mask, fixed["idx"].to(p.device), k,
+                                    radius, None)
+
+    # a fixed count of iterations (rel_tol 0): near its fixed point ICP
+    # may cycle between correspondence sets at rounding level, and the
+    # two devices would stop on different steps of the cycle
+    cfg = ICPConfig(cad_samples=CAD_VS_CPU_SAMPLES, rel_tol=0.0,
+                    max_iters=CAD_VS_CPU_ICP_ITERS)
+    cad_pc = PointCloud(points=placed + [0.002, -0.0015, 0.001])
+    orig = cad.estimate_normals
+    cad.estimate_normals = one_sample
+    try:
+        rc, Tc = cad.refine_with_icp(cad_pc, PointCloud(points=pts), cfg,
+                                     device="cpu")
+        rg, Tg = cad.refine_with_icp(cad_pc, PointCloud(points=pts), cfg,
+                                     device=dev)
+    finally:
+        cad.estimate_normals = orig
+    icp = {"t_m": float(np.abs(Tc[:3, 3] - Tg[:3, 3]).max()),
+           "R_deg": angle_deg(Tc[:3, :3], Tg[:3, :3]),
+           "fitness": abs(rc["fitness"] - rg["fitness"]),
+           "iterations": [rc["iterations"], rg["iterations"]]}
+
+    sub = PointCloud(points=pts[::CAD_BPA_STRIDE])
+    bc = reconstruct.ball_pivot(sub, device="cpu")
+    bg = reconstruct.ball_pivot(sub, device=dev)
+    bpa = {"points": len(sub), "faces": [len(bc.triangles),
+                                         len(bg.triangles)],
+           "equal": bool(np.array_equal(bc.triangles, bg.triangles))}
+    out = {"poisson_128": {"max_abs_rel": chi_rel, "sign_flips": chi_flips},
+           "refine_with_icp": icp, "ball_pivot": bpa}
+    log({"phase": "cad_chain_vs_cpu", **out})
+    if chi_rel > 1e-5 or icp["t_m"] > CAD_ICP_T_M \
+            or icp["R_deg"] > CAD_ICP_R_DEG or icp["fitness"] > 1e-6 \
+            or not bpa["equal"]:
+        raise AssertionError(f"cad_chain on the card vs CPU: {out}")
+    return pts, nrm, lo, cell
+
+
+def cad_chain_phase(dev, gpu_line, keep=None):
+    """The CAD-placement and reconstruction path (the port's six CLIs,
+    in-process, on the card) on one 1280x720 capture; returns the kernel
+    records of B1 and B2 at the chain's shapes."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from repas_tpu_torch.cloud import reconstruct
+    from repas_tpu_torch.io import native
+    from repas_tpu_torch.io.meta import read_meta
+    from repas_tpu_torch.io.ply import read_geometry
+    from repas_tpu_torch.io.image import read_image
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = cad_scene(pathlib.Path(tmp))
+        # read_image takes the native codec where it decodes the file
+        codec = ("native library" if native.read_png(d / "rgb.png")
+                 is not None else "PIL")
+        rgb = read_image(d / "rgb.png")
+        log({"phase": "cad_chain_codec", "png_codec": codec,
+             "library_build_error": native.build_error,
+             "pil_importable": importlib.util.find_spec("PIL") is not None,
+             "rgb_shape": list(rgb.shape)})
+        ms, launches, captured, icp_calls, cmeta, pmeta, sel = \
+            cad_chain_apps(d)
+
+        # B1 and B2 at the chain's shapes, exact against their plain twins
+        (mask, iters), _ = captured[0]
+        (pyr, origins, ah, aw), _ = captured[1]
+        recs = [check_b1(f"B1 ccl (cad_chain {tuple(mask.shape)})", mask,
+                         iters),
+                check_b2(f"B2 patch_extract (cad_chain {tuple(pyr.shape)}, "
+                         f"{ah}x{aw} windows)", pyr, origins, ah, aw)]
+        for rec in recs:
+            key = "ccl" if rec["name"][:2] == "B1" else "patch_extract"
+            rec["launches"] = sum(v[key] for v in launches.values())
+            rec["launches_per_app"] = {k: v[key] for k, v in
+                                       launches.items()}
+        low = {k: v for k, v in launches.items()
+               if v["ccl"] < 1 or v["patch_extract"] < 1}
+        if low:
+            raise AssertionError(f"B1/B2 not launched by {low}")
+
+        # gates
+        crop = np.asarray(read_geometry(d / "crop.ply").points, np.float64)
+        placed = np.asarray(read_geometry(d / "placed.ply").points)
+        d_place = np.linalg.norm(placed - crop[sel], axis=1)
+        icp = pmeta["icp"]
+        kinds = {n: read_meta(d / f"{n}.meta.json")["kind"] for n in
+                 ("scene", "crop", "placed", "poisson_128", "alpha", "bpa",
+                  "posed", "registered")}
+        want = {"scene": "capture", "crop": "crop", "placed": "cad_transform",
+                "poisson_128": "stl", "alpha": "stl", "bpa": "stl",
+                "posed": "cad_transform", "registered": "cad_transform"}
+        stl = {}
+        for name in ("poisson_128", "poisson_256", "alpha", "bpa"):
+            m = read_geometry(d / f"{name}.stl")
+            stl[name] = {"vertices": len(m.vertices),
+                         "triangles": len(m.triangles)}
+            if name.startswith("poisson"):
+                # the crop lies on the closed Poisson surface: each crop
+                # point within cells of a mesh vertex
+                dim = int(name.split("_")[1])
+                cell_m = float((crop.max(0) - crop.min(0)).max()) * 1.2 / dim
+                dist = nn_dist(crop[::4], m.vertices)
+                stl[name]["crop_to_mesh_median_cells"] = float(
+                    np.median(dist) / cell_m)
+                stl[name]["crop_to_mesh_p99_cells"] = float(
+                    np.percentile(dist, 99) / cell_m)
+        reg = json.loads((d / "reg.json").read_text())
+        t_mm, r_deg = motion_error(reg["T_total"], placed)
+        reg_err = {"t_mm": t_mm, "R_deg": r_deg,
+                   "global_fitness": reg["global"]["fitness"],
+                   "icp_fitness": reg["icp"]["fitness"]}
+        posed = read_meta(d / "posed.meta.json")["icp"]
+        out = {"phase": "cad_chain", "crop_points": len(crop),
+               "cad_points": len(sel), "place_median_mm":
+               float(np.median(d_place)) * 1000,
+               "place_p95_mm": float(np.percentile(d_place, 95)) * 1000,
+               "place_icp": icp, "apply_6dof_icp": posed,
+               "refine_icp": reg_err, "stl": stl, "kinds": kinds,
+               "app_ms": ms, "launches": launches,
+               "refine_with_icp": icp_calls[-1],
+               "tag_ids": cmeta["tag_ids"],
+               "anchor_P_depth": cmeta["anchor_P_depth"], "gpu": gpu_line}
+
+        log(out)
+        fails = []
+        if not np.median(d_place) < 0.005:
+            fails.append("placed CAD over 5 mm from the crop")
+        if not (icp["fitness"] > 0.9 and icp["delta_rotation_deg"] < 1.0
+                and icp["delta_translation_mm"] < 5.0):
+            fails.append("place_cad ICP")
+        if kinds != want:
+            fails.append(f"sidecar kinds {kinds}")
+        if any(v["triangles"] < 100 for v in stl.values()):
+            fails.append("an STL under 100 triangles")
+        if any(stl[n]["crop_to_mesh_median_cells"] > 1.0
+               for n in ("poisson_128", "poisson_256")):
+            fails.append("a Poisson mesh away from the crop")
+        if not (reg_err["t_mm"] < CAD_REG_T_MM
+                and reg_err["R_deg"] < CAD_REG_R_DEG):
+            fails.append("refine_icp --global missed the known motion")
+        if sorted(cmeta["tag_ids"]) != [9, 16]:
+            fails.append(f"crop_scene tag ids {cmeta['tag_ids']}")
+        if fails:
+            raise AssertionError(f"cad_chain: {fails}")
+
+        pts, nrm, lo, cell = cad_chain_vs_cpu(d, dev)
+        timing = {"phase": "cad_chain_timing"}
+        args = (torch.from_numpy(pts).to(dev), nrm,
+                torch.ones(len(pts), dtype=torch.bool, device=dev))
+        for dim in (128, 256):
+            timing[f"poisson_grid_ms_{dim}"] = cuda_ms(
+                lambda: reconstruct.poisson_indicator_grid(
+                    *args, lo, cell * 128 / dim, dim=dim), iters=3,
+                warmup=1)
+        timing["phase_s"] = time.perf_counter() - t_phase
+        timing["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        timing["gpu"] = gpu_line
+        log(timing)
+        if keep:                  # the clouds and sidecars, not the meshes
+            shutil.copytree(d, keep, dirs_exist_ok=True,
+                            ignore=shutil.ignore_patterns("*.stl", "*.png"))
+    return recs
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                "NVIDIA GPU (see the module docstring).")
+    p.add_argument("--keep", help="copy the cad_chain phase's clouds, pose "
+                   "and sidecars into this directory")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
@@ -1537,6 +1987,7 @@ def main() -> int:
         records += robust_phase(dev, gpu_line)
         records += calibrated_tracking_phase(dev, gpu_line, records)
         registration_phase(dev, gpu_line)
+        records += cad_chain_phase(dev, gpu_line, args.keep)
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

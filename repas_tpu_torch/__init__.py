@@ -18,13 +18,25 @@ never jax and nothing from ``repas_tpu``:
             for an undistorted or a calibrated camera
   cloud/    grid-hash k-NN, voxel and outlier filters, normals, FPFH +
             RANSAC, point-to-plane ICP, ``register_clouds``, the
-            tag-anchored crop and masked cloud generation
+            tag-anchored crop, masked cloud generation, CAD placement
+            and ICP refinement (``cad``), Poisson / alpha-shape / ball-
+            pivoting surface reconstruction (``reconstruct``)
+  io/       PLY / STL geometry, sidecar metadata, pose txt, images (the
+            native PNG codec, built at first use), byte-identical to the
+            reference's writers
+  utils/    the [TAG]-prefixed loggers
+  apps/     the CLIs generate_pointcloud, crop_scene, place_cad,
+            apply_6dof, refine_icp, ply_to_stl
+            (``python -m repas_tpu_torch.apps.<name> ... --device cuda``)
 
 Entry points that take tensors run where their inputs lie. Entry points
 that take host data (``pose.track.TagTracker``, the YUV formats of
 ``kernels.color.frame_to_rgb``, numpy clouds given to
-``cloud.register_clouds`` / ``global_register_fpfh``) run on the card
-unless given ``device``, and raise without one (``core/device.py``).
+``cloud.register_clouds`` / ``global_register_fpfh``, the host geometry
+of ``cloud.cad.refine_with_icp`` and ``cloud.reconstruct``'s
+``reconstruct_surface`` / ``ball_pivot``, and every CLI's ``--device``)
+run on the card unless given ``device``, and raise without one
+(``core/device.py``).
 """
 
 __version__ = "0.1.0"
