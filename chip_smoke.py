@@ -75,7 +75,29 @@
    place_cad and held exactly against their plain versions on the
    phase's first inputs; then the Poisson grid, refine_with_icp on one
    normals sample and ball pivoting on the card against the CPU;
-9. prints one JSON line of kernel results, then, last, one JSON line
+9. the canopy_calib_eval phase (canopy/, calib/, eval/ and their CLIs;
+   no kernel of their own, B1-B4 counted: none launched), under 90 s:
+   (a) measure_plant_height on a 1280x720 canopy capture (a bar tilted 6
+   degrees, a plant whose top is a 2 px leaf tip, u16 depth) on the card:
+   found, height within 5 mm of the scene's truth, the canopy mark within
+   1.5 px of the tip, canopy_px, bar_px and found equal to the CPU port's
+   and the height within 1e-5 m of it; its synchronising calls; the host
+   clock (median of 10) and CUDA events; detect_canopy.main once on PNGs
+   of the capture; (b) the reference's 19x19 board (12.7 mm squares) in
+   20 oblique 1280x720 views rendered on the card through a known lens
+   (blur, noise): detection and sub-pixel refinement of every view (all
+   found; two views' corners within 1e-3 px of the CPU port's), then
+   calibrate_camera (RMS < 0.3 px, fx and fy within 0.5 %, cx and cy
+   within 2 px of the truth); ms per view and the LM's seconds;
+   calibrate.main once on PNGs of the views; (c) 150,000 points within
+   5 mm of a closed UV sphere of 50,880 triangles through
+   point_to_mesh_signed_distances on the card: within the tessellation's
+   sag plus 1e-6 m of the analytic distance, the sign right beyond the
+   sag, a 5,000-point subsample equal to the CPU port's within 1e-6
+   relative plus 1e-7 m; host and CUDA-event times; error_report surface
+   once with --txt and --colored-out;
+10. prints one JSON line of kernel results (with each kernel's launches
+   in the canopy_calib_eval phase), then, last, one JSON line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -188,6 +210,25 @@ CAD_VS_CPU_ICP_ITERS = 30      # a fixed count of ICP iterations
 # 20k-point pair of registration_vs_cpu the two agree within 1e-8 m
 CAD_ICP_T_M, CAD_ICP_R_DEG = 2e-5, 0.01
 CAD_BPA_STRIDE = 4             # ball_pivot card-vs-CPU on every 4th point
+# canopy_calib_eval phase. (a) A 1280x720 canopy capture at the bench
+# intrinsics: an 8 px bright bar tilted 6 degrees (one of the Hough
+# table's angles), a green plant body topped by a 2 px leaf tip 24 px
+# long, plant and bar at 1.07 m with depth edges 4 px outside the colour
+# edges, background 2 m behind, 2 mm depth noise; the truth height is the
+# bar's top edge at the image centre against the tip's top row
+CANOPY_Z, CANOPY_ANGLE = 1.07, 6.0
+CANOPY_REPS = 10
+# (b) the reference's board (CalibrationConfig: 19x19 inner corners,
+# 12.7 mm squares), 20 oblique 1280x720 views through a known lens,
+# supersampled, blurred and noisy
+CAL_K = np.array([[1050.0, 0, 642.0], [0, 1047.0, 358.0], [0, 0, 1.0]])
+CAL_DIST = np.array([-0.12, 0.08, 0.0005, -0.0004, 0.0])
+CAL_N, CAL_VIEWS = 19, 20
+CAL_SQUARE = 0.0127
+# (c) 150,000 points within 5 mm of a closed UV sphere (r 0.1 m) of
+# 160 x 160 cells: 50,880 triangles
+SURF_N, SURF_R, SURF_LAT = 150_000, 0.1, 160
+SURF_SUB = 5_000               # the card-vs-CPU subsample
 
 
 def log(obj) -> None:
@@ -1494,10 +1535,10 @@ def registration_phase(dev, gpu_line):
 
 # --- cad_chain: the CAD-placement and reconstruction path ------------------
 
-def write_png(path, arr) -> None:
+def write_png(path, arr, level=6) -> None:
     """A PNG of uint8 gray/RGB or uint16 gray `arr`, filter 0, written with
-    the standard library (zlib, struct): the smoke's inputs do not depend
-    on the port's writer or on PIL."""
+    the standard library (zlib at `level`, struct): the smoke's inputs do
+    not depend on the port's writer or on PIL."""
     arr = np.ascontiguousarray(arr)
     h, w = arr.shape[:2]
     bits = 16 if arr.dtype == np.uint16 else 8
@@ -1514,7 +1555,8 @@ def write_png(path, arr) -> None:
         f.write(b"\x89PNG\r\n\x1a\n"
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype,
                                              0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+                + chunk(b"IDAT", zlib.compress(raw, level))
+                + chunk(b"IEND", b""))
 
 
 def cad_scene_depth():
@@ -1891,6 +1933,473 @@ def cad_chain_phase(dev, gpu_line, keep=None):
     return recs
 
 
+# --- canopy_calib_eval: plant height, checkerboard calibration, surface
+# error (no kernel of their own) -------------------------------------------
+
+def canopy_scene():
+    """rgb (H,W,3) u8, depth u16 mm, the tip's pixel (2,) and the truth
+    height in m (see CANOPY_*)."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    rgb = rng.normal(120, 3, (H, W, 3))
+    yb, half = 560.0, 4.0
+    yc = yb + np.tan(np.deg2rad(CANOPY_ANGLE)) * (xx - W / 2)
+    bar = (np.abs(yy - yc) <= half) & (xx >= 0.05 * W) & (xx <= 0.95 * W)
+    rgb[bar] = 235 + rng.normal(0, 3, (bar.sum(), 3))
+    cx, cy, ax, ay = 0.5 * W, 330.0, 150.0, 110.0
+    body = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 < 1.0
+    top = cy - ay
+    tip = (np.abs(xx - (cx + 0.5)) <= 1.0) & (yy >= top - 24) & (yy <= top + 2)
+    plant = body | tip
+    rgb[plant] = [45, 165, 55] + rng.normal(0, 4, (plant.sum(), 3))
+    rgb = np.clip(np.round(rgb), 0, 255).astype(np.uint8)
+    near = plant | bar
+    grown = near.copy()
+    for dy in range(-4, 5):
+        for dx in range(-4, 5):
+            grown |= np.roll(np.roll(near, dy, 0), dx, 1)
+    depth = (np.where(grown, CANOPY_Z, CANOPY_Z + 2.0)
+             + rng.normal(0, 0.002, (H, W)))
+    tip_y = float(np.where(plant.any(1))[0][0])
+    tip_x = float(np.median(np.where(plant[int(tip_y)])[0]))
+    height = (yb - half - 0.5 - tip_y) * CANOPY_Z / float(ROBUST_K[1, 1])
+    return (rgb, np.round(depth * 1000).astype(np.uint16),
+            np.array([tip_x, tip_y]), height)
+
+
+def host_and_device_ms(fn):
+    """One call of fn: (host-clock ms around it and a synchronise, CUDA
+    event ms around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def device_profile(fn, top=5):
+    """One call of fn under torch.profiler: the number of device kernels,
+    their summed device ms, and the `top` kernels by device ms (names
+    shortened); a window with no device events reports zeros."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
+            e.device_time / 1e3
+    return {"kernels": len(kern),
+            "device_ms": sum(e.device_time for e in kern) / 1e3,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def canopy_part(d, dev, gpu_line):
+    """measure_plant_height at 720p on the card: gates, card vs CPU, times,
+    synchronising calls; then detect_canopy.main on PNGs of the scene."""
+    from repas_tpu_torch.apps import detect_canopy
+    from repas_tpu_torch.canopy import measure_plant_height
+
+    rgb, d16, tip, truth = canopy_scene()
+    depth = d16.astype(np.float32) / 1000.0
+    K = ROBUST_K
+    args = (torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev),
+            torch.from_numpy(K).to(dev))
+    res = measure_plant_height(*args)                # warm
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = measure_plant_height(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sync_warnings(caught)
+    ms = host_ms(lambda: measure_plant_height(*args), CANOPY_REPS)
+    ev_ms = cuda_ms(lambda: measure_plant_height(*args), iters=CANOPY_REPS,
+                    warmup=1)
+    prof = device_profile(lambda: measure_plant_height(*args))
+    cpu = measure_plant_height(torch.from_numpy(rgb),
+                               torch.from_numpy(depth), K)
+    got = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+    height = float(got["plant_height_m"])
+    out = {"phase": "canopy", "height": H, "width": W,
+           "found": bool(got["found"]), "height_m": height,
+           "truth_height_m": truth, "height_err_mm": (height - truth) * 1e3,
+           "canopy_px": got["canopy_px"].tolist(), "tip_px": tip.tolist(),
+           "bar_px": got["bar_px"].tolist(),
+           "rotation_deg": float(got["rotation_deg"]),
+           "bar_z_m": float(got["bar_3d"][2]),
+           "canopy_z_m": float(got["canopy_3d"][2]),
+           "vs_cpu": {"canopy_px_equal": bool(np.array_equal(
+               got["canopy_px"], cpu.canopy_px.numpy())),
+               "bar_px_equal": bool(np.array_equal(got["bar_px"],
+                                                   cpu.bar_px.numpy())),
+               "found_equal": bool(got["found"]) == bool(cpu.found),
+               "height_m": abs(height - float(cpu.plant_height_m))},
+           "sync_calls": len(syncs), "sync_messages": syncs[:3],
+           "ms_median": float(np.median(ms)), "ms_all": ms,
+           "ms_cuda_events": ev_ms, "profile": prof, "gpu": gpu_line}
+    log(out)
+    fails = []
+    if syncs:
+        fails.append(f"{len(syncs)} synchronising calls")
+    if not out["found"]:
+        fails.append("not found")
+    if not abs(height - truth) < 0.005:
+        fails.append(f"height {height} vs truth {truth}")
+    if not np.abs(got["canopy_px"] - tip).max() <= 1.5:
+        fails.append(f"canopy_px {got['canopy_px']} vs tip {tip}")
+    v = out["vs_cpu"]
+    if not (v["canopy_px_equal"] and v["bar_px_equal"] and v["found_equal"]
+            and v["height_m"] < 1e-5):
+        fails.append(f"card vs CPU {v}")
+    if fails:
+        raise AssertionError(f"canopy: {fails}")
+
+    write_png(d / "canopy_rgb.png", rgb)
+    write_png(d / "canopy_depth.png", d16)
+    t0 = time.perf_counter()
+    app = detect_canopy.main(["--color", str(d / "canopy_rgb.png"),
+                              "--depth", str(d / "canopy_depth.png"),
+                              "--fx", str(K[0, 0]), "--fy", str(K[1, 1]),
+                              "--cx", str(K[0, 2]), "--cy", str(K[1, 2]),
+                              "--out-txt", str(d / "camera_z.txt"),
+                              "--json", str(d / "canopy.json"),
+                              "--device", "cuda"])
+    app_s = time.perf_counter() - t0
+    log({"phase": "canopy_app", "plant_height_m": app["plant_height_m"],
+         "out_txt": (d / "camera_z.txt").read_text(), "app_s": app_s})
+    if abs(app["plant_height_m"] - height) > 1e-6:
+        raise AssertionError("detect_canopy disagrees with the direct call")
+    return out
+
+
+def _rot_xyz(tilt, yaw, roll):
+    """Rotation: roll about z after tilt about x after yaw about y
+    (degrees)."""
+    def R(axis, a):
+        c, s_ = np.cos(np.radians(a)), np.sin(np.radians(a))
+        i, j = [k for k in range(3) if k != axis]
+        m = np.eye(3)
+        m[i, i], m[i, j], m[j, i], m[j, j] = c, -s_, s_, c
+        return m
+    return R(2, roll) @ R(0, tilt) @ R(1, yaw)
+
+
+def render_board(R, t, seed, dev, ss=2, blur=0.9, noise=1.5):
+    """A 1280x720 view of the CAL_N x CAL_N-corner board through CAL_K and
+    CAL_DIST, rendered on the card in float64: each supersample's ray is
+    undistorted (20 fixed-point steps), met with the board plane and
+    shaded (dark squares 45, light 205, white surround); then box
+    averaged, blurred, noised and quantised. Returns (H,W) float32 on the
+    card."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    K = CAL_K
+    u = (torch.arange(W * ss, **f64) + 0.5) / ss - 0.5
+    v = (torch.arange(H * ss, **f64) + 0.5) / ss - 0.5
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    x0, y0 = (uu - K[0, 2]) / K[0, 0], (vv - K[1, 2]) / K[1, 1]
+    k1, k2, p1, p2, k3 = CAL_DIST
+    x, y = x0.clone(), y0.clone()
+    for _ in range(20):
+        r2 = x * x + y * y
+        rad = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x, y = (x0 - dx) / rad, (y0 - dy) / rad
+    Minv = torch.linalg.inv(torch.tensor(np.column_stack(
+        [R[:, 0], R[:, 1], t]), **f64))
+    b = Minv @ torch.stack([x.reshape(-1), y.reshape(-1),
+                            torch.ones_like(x).reshape(-1)])
+    X, Y = b[0] / b[2], b[1] / b[2]
+    i, j = torch.floor(X / CAL_SQUARE), torch.floor(Y / CAL_SQUARE)
+    inside = (i >= 0) & (i <= CAL_N) & (j >= 0) & (j <= CAL_N) & (b[2] > 0)
+    img = torch.where((torch.remainder(i + j, 2) == 0) & inside, 45.0, 205.0)
+    img = img.to(torch.float64).reshape(H, ss, W, ss).mean((1, 3))
+    r = int(3 * blur + 0.5)
+    k = torch.exp(-0.5 * (torch.arange(-r, r + 1, **f64) / blur) ** 2)
+    k = (k / k.sum()).reshape(1, 1, 1, -1)
+    img = torch.nn.functional.conv2d(torch.nn.functional.pad(
+        img[None, None], (r, r, 0, 0), mode="replicate"), k)
+    img = torch.nn.functional.conv2d(torch.nn.functional.pad(
+        img, (0, 0, r, r), mode="replicate"), k.transpose(-1, -2))[0, 0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    img = img + noise * torch.randn(img.shape, generator=gen, **f64)
+    return torch.floor(torch.clamp(img, 0, 255)).to(torch.float32)
+
+
+def board_views():
+    """CAL_VIEWS board poses (R, t): tilted 10-40 degrees, yawed +-30,
+    rolled +-12, 0.42-0.55 m away, moved about the image so the corners
+    reach its borders; the whole board inside the frame."""
+    from repas_tpu_torch.kernels.project import project_points
+
+    rng = np.random.default_rng(11)
+    c = np.array([(CAL_N + 1) * CAL_SQUARE / 2] * 2 + [0.0])
+    outline = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0.0]]) \
+        * (CAL_N + 1) * CAL_SQUARE
+    poses = []
+    while len(poses) < CAL_VIEWS:
+        R = _rot_xyz(rng.uniform(10, 40) * rng.choice([-1, 1]),
+                     rng.uniform(-30, 30), rng.uniform(-12, 12))
+        t = np.array([rng.uniform(-0.06, 0.06), rng.uniform(-0.04, 0.04),
+                      rng.uniform(0.42, 0.55)]) - R @ c
+        uv = project_points(torch.tensor(outline), torch.tensor(R),
+                            torch.tensor(t), torch.tensor(CAL_K),
+                            torch.tensor(CAL_DIST)).numpy()
+        if (uv.min(0) > 12).all() and (uv.max(0) < [W - 12, H - 12]).all():
+            poses.append((R, t))
+    return poses
+
+
+def calibration_part(d, dev, gpu_line):
+    """The reference's board in 20 views on the card: detection, sub-pixel
+    refinement, calibrate_camera; gates; two views against the CPU; then
+    calibrate.main on PNGs of the views."""
+    from repas_tpu_torch.apps import calibrate
+    from repas_tpu_torch.calib import (calibrate_camera,
+                                       detect_checkerboard_corners,
+                                       refine_corners_subpix)
+
+    poses = board_views()
+    t0 = time.perf_counter()
+    imgs = [render_board(R, t, i, dev) for i, (R, t) in enumerate(poses)]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    n = CAL_N
+    xx, yy = np.meshgrid(np.arange(n), np.arange(n))
+    obj = np.column_stack([xx.ravel() * CAL_SQUARE, yy.ravel() * CAL_SQUARE,
+                           np.zeros(n * n)]).astype(np.float32)
+    detect_refine = lambda g: refine_corners_subpix(          # noqa: E731
+        g, detect_checkerboard_corners(g, n, n)[0])
+    detect_refine(imgs[0])                                  # warm
+    found, corners, view_ms = [], [], []
+    for g in imgs:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        c, ok = detect_checkerboard_corners(g, n, n)
+        r = refine_corners_subpix(g, c)
+        torch.cuda.synchronize()
+        view_ms.append((time.perf_counter() - t1) * 1e3)
+        found.append(bool(ok))
+        corners.append(r.cpu().numpy())
+    # the refined corners against the rendered truth (first inner corner
+    # at one square from the board's origin)
+    from repas_tpu_torch.kernels.project import project_points
+    truth_err = [float(np.abs(project_points(
+        torch.tensor(obj + [CAL_SQUARE, CAL_SQUARE, 0.0], dtype=torch.float64),
+        torch.tensor(R), torch.tensor(t), torch.tensor(CAL_K),
+        torch.tensor(CAL_DIST)).numpy() - c).max())
+        for (R, t), c in zip(poses, corners)]
+    cpu_err = []
+    for i in (0, CAL_VIEWS - 1):
+        g = imgs[i].cpu()
+        c_cpu = detect_refine(g).numpy()
+        cpu_err.append(float(np.abs(c_cpu - corners[i]).max()))
+    view_prof = device_profile(lambda: detect_refine(imgs[0]))
+    objs = np.stack([obj] * CAL_VIEWS)
+    calibrate_camera(objs, np.stack(corners), (W, H), device=dev)  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    K, dist, rms, _, _ = calibrate_camera(objs, np.stack(corners), (W, H),
+                                          device=dev)
+    lm_s = time.perf_counter() - t1
+    out = {"phase": "calibration", "views": CAL_VIEWS, "found": found,
+           "rms_px": rms, "K": K.tolist(), "dist": dist[:5].tolist(),
+           "K_truth": CAL_K.tolist(), "dist_truth": CAL_DIST.tolist(),
+           "fx_rel_err": K[0, 0] / CAL_K[0, 0] - 1,
+           "fy_rel_err": K[1, 1] / CAL_K[1, 1] - 1,
+           "cx_err_px": K[0, 2] - CAL_K[0, 2],
+           "cy_err_px": K[1, 2] - CAL_K[1, 2],
+           "corner_vs_truth_px_max": max(truth_err),
+           "corner_vs_cpu_px": cpu_err,
+           "view_ms_median": float(np.median(view_ms)), "view_ms": view_ms,
+           "view_profile": view_prof, "calibrate_s": lm_s,
+           "calibrate_5_steps_profile": device_profile(
+               lambda: calibrate_camera(objs, np.stack(corners), (W, H),
+                                        iters=5, device=dev)),
+           "render_s": render_s, "gpu": gpu_line}
+    log(out)
+    fails = []
+    if not all(found):
+        fails.append(f"boards not found: {found}")
+    if not rms < 0.3:
+        fails.append(f"rms {rms}")
+    if not (abs(out["fx_rel_err"]) < 0.005 and abs(out["fy_rel_err"]) < 0.005
+            and abs(out["cx_err_px"]) < 2 and abs(out["cy_err_px"]) < 2):
+        fails.append(f"K {K.tolist()}")
+    if not max(cpu_err) < 1e-3:
+        fails.append(f"card vs CPU corners {cpu_err}")
+    if fails:
+        raise AssertionError(f"calibration: {fails}")
+
+    vd = d / "views"
+    vd.mkdir()
+    for i, g in enumerate(imgs):
+        write_png(vd / f"view_{i:02d}.png", g.cpu().numpy().astype(np.uint8),
+                  level=1)
+    t1 = time.perf_counter()
+    calibrate.main(["--images", str(vd), "--cols", str(n), "--rows", str(n),
+                    "--square-mm", str(CAL_SQUARE * 1000),
+                    "--out", str(d / "calib.json"), "--device", "cuda"])
+    app_s = time.perf_counter() - t1
+    app = json.loads((d / "calib.json").read_text())
+    log({"phase": "calibration_app", "fx": app["fx"], "fy": app["fy"],
+         "cx": app["cx"], "cy": app["cy"], "rms_px": app["rms_px"],
+         "app_s": app_s})
+    if abs(app["fx"] / CAL_K[0, 0] - 1) > 0.005 or app["rms_px"] >= 0.3:
+        raise AssertionError(f"calibrate app: {app}")
+    return out
+
+
+def uv_sphere(n_lat, n_lon, r):
+    """A closed UV sphere (vertices, triangles), wound counter-clockwise
+    seen from outside."""
+    th = np.pi * np.arange(1, n_lat) / n_lat
+    ph = 2 * np.pi * np.arange(n_lon) / n_lon
+    ring = np.stack([np.sin(th)[:, None] * np.cos(ph)[None],
+                     np.sin(th)[:, None] * np.sin(ph)[None],
+                     np.cos(th)[:, None] * np.ones(n_lon)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 0, 1.0]], ring, [[0, 0, -1.0]]]) * r
+    i = np.arange(n_lat - 2)[:, None]
+    j = np.arange(n_lon)[None, :]
+    a, b = 1 + i * n_lon + j, 1 + i * n_lon + (j + 1) % n_lon
+    c, e = a + n_lon, b + n_lon
+    body = np.concatenate([np.stack([a, c, e], -1).reshape(-1, 3),
+                           np.stack([a, e, b], -1).reshape(-1, 3)])
+    jj = np.arange(n_lon)
+    last = len(verts) - 1
+    top = np.stack([np.zeros(n_lon, int), 1 + jj, 1 + (jj + 1) % n_lon], -1)
+    base = 1 + (n_lat - 2) * n_lon
+    bot = np.stack([np.full(n_lon, last), base + (jj + 1) % n_lon,
+                    base + jj], -1)
+    return (verts.astype(np.float32),
+            np.concatenate([top, bot, body]).astype(np.int32))
+
+
+def surface_part(d, dev, gpu_line):
+    """point_to_mesh_signed_distances for 150,000 points on the card:
+    against the analytic distance, the sign, the CPU on a subsample;
+    times; then error_report surface on files of the scene."""
+    from repas_tpu_torch.apps import error_report
+    from repas_tpu_torch.eval.reports import point_to_mesh_signed_distances
+    from repas_tpu_torch.io.ply import (PointCloud, TriangleMesh, write_ply,
+                                        write_stl)
+
+    verts, tris = uv_sphere(SURF_LAT, SURF_LAT, SURF_R)
+    rng = np.random.default_rng(5)
+    u = rng.normal(size=(SURF_N, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pts = (u * (SURF_R + rng.uniform(-0.005, 0.005, (SURF_N, 1)))).astype(
+        np.float32)
+    # the mesh lies between the sphere and the nearest plane of its
+    # triangles: sag <= r - min plane distance from the centre
+    a, b, c = (verts[tris[:, k]].astype(np.float64) for k in range(3))
+    nrm = np.cross(b - a, c - a)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    sag = SURF_R - float(np.min(np.abs(np.sum(nrm * a, axis=1))))
+    args = [torch.from_numpy(x).to(dev) for x in (pts, verts, tris)]
+    dist = point_to_mesh_signed_distances(*args)           # warm
+    torch.cuda.synchronize()
+    ms, ev_ms = host_and_device_ms(
+        lambda: point_to_mesh_signed_distances(*args))
+    # the kernel mix of one tenth of the triangles (the same per chunk)
+    tenth = args[2][:len(tris) // 10]
+    prof = device_profile(lambda: point_to_mesh_signed_distances(
+        args[0], args[1], tenth))
+    dist = dist.cpu().numpy().astype(np.float64)
+    true = np.linalg.norm(pts.astype(np.float64), axis=1) - SURF_R
+    err = np.abs(np.abs(dist) - np.abs(true))
+    far = np.abs(true) > sag + 1e-6
+    sign_ok = bool((np.sign(dist[far]) == np.sign(true[far])).all())
+    sub = np.random.default_rng(6).choice(SURF_N, SURF_SUB, replace=False)
+    t0 = time.perf_counter()
+    # on the CPU in batches of 500 points against 512-triangle chunks: the
+    # same results (each point's distance is its own), with intermediates
+    # that stay in cache (5x faster than one call with 256-wide chunks)
+    cpu = torch.cat([point_to_mesh_signed_distances(
+        torch.from_numpy(pts[sub[i:i + 500]]), torch.from_numpy(verts),
+        torch.from_numpy(tris), chunk=512) for i in range(0, SURF_SUB, 500)]
+    ).numpy().astype(np.float64)
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = np.abs(np.abs(dist[sub]) - np.abs(cpu))
+    away = np.abs(cpu) > 1e-5
+    out = {"phase": "surface_error", "points": SURF_N,
+           "triangles": len(tris), "sag_m": sag,
+           "max_err_vs_analytic_m": float(err.max()),
+           "sign_right_beyond_sag": sign_ok, "points_beyond_sag":
+           int(far.sum()), "vs_cpu_max_m": float(vs_cpu.max()),
+           "vs_cpu_over_tol": int((vs_cpu > 1e-6 * np.abs(cpu) + 1e-7).sum()),
+           "vs_cpu_sign_differ": int((np.sign(dist[sub]) != np.sign(cpu))
+                                     [away].sum()),
+           "cpu_subsample_s": cpu_s, "cpu_threads": torch.get_num_threads(),
+           "ms_host": ms, "ms_cuda_events": ev_ms,
+           "profile_tenth_of_triangles": prof, "gpu": gpu_line}
+    log(out)
+    fails = []
+    if not err.max() <= sag + 1e-6:
+        fails.append(f"error vs analytic {err.max()} over sag {sag}")
+    if not sign_ok:
+        fails.append("a sign wrong beyond the sag")
+    if out["vs_cpu_over_tol"] or out["vs_cpu_sign_differ"]:
+        fails.append(f"card vs CPU {out['vs_cpu_over_tol']} over tolerance,"
+                     f" {out['vs_cpu_sign_differ']} signs")
+    if fails:
+        raise AssertionError(f"surface_error: {fails}")
+
+    write_ply(d / "cloud.ply", PointCloud(points=pts))
+    write_stl(d / "sphere.stl", TriangleMesh(vertices=verts, triangles=tris))
+    t0 = time.perf_counter()
+    rep = error_report.main(["surface", "--cloud", str(d / "cloud.ply"),
+                             "--mesh", str(d / "sphere.stl"),
+                             "--txt", str(d / "alignment_errors.txt"),
+                             "--colored-out", str(d / "colored.ply"),
+                             "--json", str(d / "surface.json"),
+                             "--device", "cuda"])
+    app_s = time.perf_counter() - t0
+    log({"phase": "surface_error_app", "count": rep["count"],
+         "mean_mm": rep["mean_mm"], "inside_fraction":
+         rep["signed"]["inside_fraction"], "app_s": app_s})
+    if rep["count"] != SURF_N or not (d / "colored.ply").exists():
+        raise AssertionError(f"error_report surface: {rep}")
+    return out
+
+
+def canopy_calib_eval_phase(dev, gpu_line):
+    """The canopy-height, calibration and surface-error paths on the card
+    (no kernel of theirs; B1-B4 counted across the phase: none
+    launched). Returns the B1-B4 launch counts of the phase."""
+    import pathlib
+    import tempfile
+
+    from repas_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        canopy_part(d, dev, gpu_line)
+        calibration_part(d, dev, gpu_line)
+        surface_part(d, dev, gpu_line)
+    counts = dict(_build.launches)
+    phase_s = time.perf_counter() - t0
+    log({"phase": "canopy_calib_eval", "phase_s": phase_s,
+         "kernel_launches": counts, "gpu": gpu_line})
+    if phase_s > 90.0:
+        raise AssertionError(f"canopy_calib_eval took {phase_s} s")
+    return counts
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (see the module docstring).")
@@ -1988,6 +2497,12 @@ def main(argv=None) -> int:
         records += calibrated_tracking_phase(dev, gpu_line, records)
         registration_phase(dev, gpu_line)
         records += cad_chain_phase(dev, gpu_line, args.keep)
+        counts = canopy_calib_eval_phase(dev, gpu_line)
+    keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
+            "B4": "ccl_tiled"}
+    for rec in records:
+        rec["launches_canopy_calib_eval"] = counts.get(keys[rec["name"][:2]],
+                                                       0)
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -24,9 +24,16 @@ never jax and nothing from ``repas_tpu``:
   io/       PLY / STL geometry, sidecar metadata, pose txt, images (the
             native PNG codec, built at first use), byte-identical to the
             reference's writers
+  canopy/   plant-canopy height: Canny + Hough bar detection, colour-
+            model plant segmentation, ``measure_plant_height``
+  calib/    checkerboard corners, sub-pixel refinement, Zhang + LM
+            ``calibrate_camera``
+  eval/     correspondence and point-to-mesh error reports
+  viz/      host matplotlib scenes and the depth colorizer
   utils/    the [TAG]-prefixed loggers
   apps/     the CLIs generate_pointcloud, crop_scene, place_cad,
-            apply_6dof, refine_icp, ply_to_stl
+            apply_6dof, refine_icp, ply_to_stl, detect_canopy,
+            calibrate, error_report
             (``python -m repas_tpu_torch.apps.<name> ... --device cuda``)
 
 Entry points that take tensors run where their inputs lie. Entry points
@@ -34,7 +41,8 @@ that take host data (``pose.track.TagTracker``, the YUV formats of
 ``kernels.color.frame_to_rgb``, numpy clouds given to
 ``cloud.register_clouds`` / ``global_register_fpfh``, the host geometry
 of ``cloud.cad.refine_with_icp`` and ``cloud.reconstruct``'s
-``reconstruct_surface`` / ``ball_pivot``, and every CLI's ``--device``)
+``reconstruct_surface`` / ``ball_pivot``, ``calib.calibrate_camera``,
+and every CLI's ``--device``)
 run on the card unless given ``device``, and raise without one
 (``core/device.py``).
 """

@@ -2,9 +2,10 @@
 
 Port of ``repas_tpu/core/config.py`` (``DetectorConfig``, ``PnPConfig``,
 ``DepthConfig``, ``ICPConfig``, ``RansacConfig``, ``CropConfig``,
-``CadConfig``, ``PipelineConfig``): the same fields and defaults, limited
-to the sub-configs the ported paths read (frame pipeline, registration,
-crop).
+``CadConfig``, ``CanopyConfig``, ``CalibrationConfig``,
+``PipelineConfig``): the same fields and defaults, limited to the
+sub-configs the ported paths read (frame pipeline, registration, crop,
+CAD placement, canopy height, checkerboard calibration).
 ``from_reference`` builds this tree, and ``tracker_config_from_reference``
 the tracker's ``TrackerConfig``, from ``dataclasses.asdict`` of a
 ``repas_tpu`` config, so both packages can run the same knobs (the
@@ -112,6 +113,49 @@ class CadConfig:
 
 
 @dataclass(frozen=True)
+class CanopyConfig:
+    """Plant-height pipeline (canopy/height.py)."""
+
+    canny_low: float = 50.0
+    canny_high: float = 150.0
+    hough_threshold: int = 50
+    hough_min_line_len: float = 50.0
+    hough_max_line_gap: float = 10.0
+    min_coverage: float = 0.1           # line >= 10% of image width
+    max_bar_angle_deg: float = 20.0
+    grabcut_iters: int = 5
+    # HSV green ranges: seed (refinement prior) and strict (apply_green_mask)
+    green_seed_lo: Tuple[int, int, int] = (35, 40, 40)
+    green_seed_hi: Tuple[int, int, int] = (85, 255, 255)
+    green_lo: Tuple[int, int, int] = (35, 80, 30)
+    green_hi: Tuple[int, int, int] = (85, 255, 255)
+    morph_kernel: int = 3
+    depth_win: int = 5
+    depth_fallback_win: int = 11
+    proc_decimate: int = 2   # 2-D stages at 1/dec resolution (depth
+                             # lookups and 3-D math at full resolution)
+    tip_reconstruct_iters: int = 16  # full-res geodesic growth of thin
+                                     # leaf tips (canopy/height.py 4b)
+    canopy_depth_win: int = 25       # plant-masked median window for the
+                                     # canopy depth
+
+
+@dataclass(frozen=True)
+class CalibrationConfig:
+    """Checkerboard calibration (calib/checkerboard.py)."""
+
+    inner_cols: int = 19
+    inner_rows: int = 19
+    square_size_mm: float = 12.7
+    num_views: int = 20
+    solver_iters: int = 100
+    solver_tol: float = 1e-6
+    subpix_win: int = 5
+    subpix_iters: int = 50
+    subpix_tol: float = 1e-4
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """Top-level config tree of the ported paths."""
 
@@ -120,6 +164,8 @@ class PipelineConfig:
     depth: DepthConfig = field(default_factory=DepthConfig)
     icp: ICPConfig = field(default_factory=ICPConfig)
     ransac: RansacConfig = field(default_factory=RansacConfig)
+    canopy: CanopyConfig = field(default_factory=CanopyConfig)
+    calibration: CalibrationConfig = field(default_factory=CalibrationConfig)
     crop: CropConfig = field(default_factory=CropConfig)
     cad: CadConfig = field(default_factory=CadConfig)
     tag_ids: Tuple[int, ...] = (9, 16)
@@ -136,14 +182,15 @@ def _build(cls, d: dict):
 
 def from_reference(cfg_dict: dict) -> PipelineConfig:
     """PipelineConfig from ``dataclasses.asdict`` of a repas_tpu
-    ``PipelineConfig``. Sub-configs no ported path reads (canopy,
-    calibration) are ignored; a missing field raises KeyError."""
+    ``PipelineConfig``; a missing field raises KeyError."""
     return PipelineConfig(
         detector=_build(DetectorConfig, cfg_dict["detector"]),
         pnp=_build(PnPConfig, cfg_dict["pnp"]),
         depth=_build(DepthConfig, cfg_dict["depth"]),
         icp=_build(ICPConfig, cfg_dict["icp"]),
         ransac=_build(RansacConfig, cfg_dict["ransac"]),
+        canopy=_build(CanopyConfig, cfg_dict["canopy"]),
+        calibration=_build(CalibrationConfig, cfg_dict["calibration"]),
         crop=_build(CropConfig, cfg_dict["crop"]),
         cad=_build(CadConfig, cfg_dict["cad"]),
         tag_ids=tuple(cfg_dict["tag_ids"]),

@@ -2,7 +2,8 @@
 
 Port of ``repas_tpu/kernels/pointcloud.py`` (``depth_to_meters``,
 ``depth_image_to_points``, ``fused_pointcloud``, ``rgbd_to_pointcloud``,
-``xyzrgb_rows``, ``median_depth_window``). Carries kernel B3:
+``xyzrgb_rows``, ``median_depth_window``,
+``masked_median_depth_window``). Carries kernel B3:
 ``fused_pointcloud`` launches ``csrc/pointcloud.cu`` on CUDA tensors and
 runs its plain version on CPU tensors. Both compute the reference Pallas
 kernel's formula on every shape; the reference's XLA fallback (which the
@@ -136,6 +137,39 @@ def median_depth_window(depth_m: torch.Tensor, u: torch.Tensor,
     n_q = u.shape[-1]
     patch = torch.gather(depth_m.reshape(B, -1), 1, idx).reshape(B, n_q, k * k)
     valid = torch.isfinite(patch) & (patch > 0)
+    n = valid.sum(dim=-1)
+    big = torch.finfo(torch.float32).max
+    vals = torch.sort(torch.where(valid, patch, big), dim=-1).values
+    lo = torch.gather(vals, -1, torch.clamp((n - 1) // 2, min=0)[..., None])
+    hi = torch.gather(vals, -1, torch.clamp(n // 2, min=0)[..., None])
+    med = 0.5 * (lo[..., 0] + hi[..., 0])
+    return torch.where(n > 0, med, 0.0)
+
+
+def masked_median_depth_window(depth_m: torch.Tensor, mask: torch.Tensor,
+                               u: torch.Tensor, v: torch.Tensor,
+                               win: int = 25) -> torch.Tensor:
+    """Median of valid depths over mask-true pixels in a win x win window
+    around (u,v); 0.0 where none.
+
+    depth_m and mask (B,H,W); u, v (B,N) integer pixel coords -> (B,N).
+    A thin structure (a 1-2 px leaf tip) lets the plain window median
+    read the background through it; restricting the median to mask
+    pixels in a wider window anchors it to the plant body. An even count
+    averages the two middle values, as the reference's median does."""
+    B, h, w = depth_m.shape
+    r = max(1, win // 2)
+    k = 2 * r + 1
+    u = torch.clamp(u.to(torch.int64), 0, w - 1)
+    v = torch.clamp(v.to(torch.int64), 0, h - 1)
+    du = torch.arange(-r, r + 1, device=depth_m.device)
+    uu = torch.clamp(u[..., None, None] + du[None, :], 0, w - 1)
+    vv = torch.clamp(v[..., None, None] + du[:, None], 0, h - 1)
+    idx = (vv * w + uu).reshape(B, -1)
+    n_q = u.shape[-1]
+    patch = torch.gather(depth_m.reshape(B, -1), 1, idx).reshape(B, n_q, k * k)
+    mpatch = torch.gather(mask.reshape(B, -1), 1, idx).reshape(B, n_q, k * k)
+    valid = torch.isfinite(patch) & (patch > 0) & mpatch
     n = valid.sum(dim=-1)
     big = torch.finfo(torch.float32).max
     vals = torch.sort(torch.where(valid, patch, big), dim=-1).values
