@@ -96,9 +96,30 @@
    sag, a 5,000-point subsample equal to the CPU port's within 1e-6
    relative plus 1e-7 m; host and CUDA-event times; error_report surface
    once with --txt and --colored-out;
-10. prints one JSON line of kernel results (with each kernel's launches
-   in the canopy_calib_eval phase), then, last, one JSON line
-   {"ok": true, "device": {...}}.
+10. the apps_stream phase (the stream, pose, capture, fusion and viewing
+   CLIs, the splat renderer and the frame mesh): a 1280x720 replay
+   stream of 8 frames (tags 9 and 16 on a plane at 0.5 m, the camera
+   moving 2 and 1 mm a frame) and a second view turned 25 degrees,
+   written as color_<ts>.png + aligned_depth_<ts>.png; the ten CLIs
+   track_stream (default, --robust, --temporal), detect_tags,
+   estimate_pose, validate_pose translation, align_depth,
+   capture_aligned --colorize, fetch_intrinsics, pack_replay --colorize,
+   fuse_views and view_pointcloud --splat, in-process on the card, each
+   timed after one warm call with B1-B4's launches counted around it;
+   B1, B2 and B3 must launch in track_stream and B4 in track_stream
+   --robust or fuse_views, and each is held exactly against its plain
+   version at the phase's first inputs. Gates: ids [9, 16] and the
+   anchor within 5 mm of the truth on every frame, modes register then
+   track, validate_pose's delta within 2 mm of the known step, the two
+   fused views within 5 mm of each other (median nearest neighbour),
+   a drawn splat image, align_depth and capture_aligned equal to the
+   CPU port's files; render_pointcloud of 1M fused points at 1280x720
+   (CUDA events; z-buffer equal to the CPU port's, the image differing
+   at most at tied pixels); sharded_frame_pipeline(process_frames) over
+   the card named twice at batch 16 equal to the unsharded step;
+11. prints one JSON line of kernel results (with each kernel's launches
+   in the canopy_calib_eval and apps_stream phases), then, last, one
+   JSON line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It needs one CUDA device and refuses to run without one.
@@ -563,26 +584,31 @@ def check_b2(name, pyr, origins, ah, aw):
 def check_kernels(captured):
     """Each kernel against its plain version on the card, at the main
     path's inputs; returns the kernel records (launches filled later)."""
-    from repas_tpu_torch.kernels import pointcloud
-
     (mask, iters), _ = captured["ccl"]
     (pyr, origins, ah, aw), _ = captured["patch_extract"]
     (depth, rgb32, K), kw = captured["pointcloud"]
-    scale = kw["scale"]
+    return [
+        check_b1("B1 ccl", mask, iters),
+        check_b2("B2 patch_extract", pyr, origins, ah, aw),
+        check_b3("B3 pointcloud", depth, rgb32, K, kw["scale"]),
+    ]
+
+
+def check_b3(name, depth, rgb32, K, scale):
+    from repas_tpu_torch.kernels import pointcloud
+
     npix = depth.numel()
     # depth (u16) and packed colour (int32) read once, six f32 planes
     # written once
     b3_bytes = npix * (depth.element_size() + rgb32.element_size() + 6 * 4)
-    return [
-        check_b1("B1 ccl", mask, iters),
-        check_b2("B2 patch_extract", pyr, origins, ah, aw),
-        record("B3 pointcloud", B3_SRC, hold(
-            "B3 pointcloud", depth.shape,
-            lambda: pointcloud.fused_pointcloud(depth, rgb32, K, scale),
-            lambda: pointcloud.fused_pointcloud_plain(depth, rgb32, K, scale),
-            1e-6), b3_bytes, B3_OPS_PER_POINT * npix, F32_OPS_PER_S,
-            NO_LIBRARY_B3),
-    ]
+    rec = record(name, B3_SRC, hold(
+        name, depth.shape,
+        lambda: pointcloud.fused_pointcloud(depth, rgb32, K, scale),
+        lambda: pointcloud.fused_pointcloud_plain(depth, rgb32, K, scale),
+        1e-6), b3_bytes, B3_OPS_PER_POINT * npix, F32_OPS_PER_S,
+        NO_LIBRARY_B3)
+    rec["input_shape"] = list(depth.shape)
+    return rec
 
 
 def check_results(out, out_cpu0, dev_name):
@@ -636,7 +662,7 @@ def ladder_and_pose(frames, K, cfg, tag):
     return det, best, t, err
 
 
-def check_b4(mask, iters):
+def check_b4(mask, iters, name="B4 ccl_tiled"):
     """B4 on the ladder's first B4 input: the row unit on the initial
     labels, the column unit on the row unit's output, and the tiled CCL
     (the band CCL in grid mode), each exactly against its plain version
@@ -657,25 +683,25 @@ def check_b4(mask, iters):
          lambda: ccl_tiled.connected_components_tiled_plain(mask, iters)),
     ]
     out = {}
-    for name, kern, plain in cases:
+    for unit, kern, plain in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             bad = int((got != ref).sum())
-            raise AssertionError(f"B4 {name}: kernel differs from its plain "
+            raise AssertionError(f"B4 {unit}: kernel differs from its plain "
                                  f"version at {bad} pixels")
-        out[name] = {"ms": cuda_ms(kern, queued=True),
+        out[unit] = {"ms": cuda_ms(kern, queued=True),
                      "plain_ms": cuda_ms(plain, 5, 1)}
     if not torch.equal(ccl_tiled.connected_components_tiled_cuda(mask, iters),
                        ccl_cuda.connected_components_cuda(mask, iters)):
         raise AssertionError("B4 tiled CCL differs from B1's labels")
     plan = ccl_plan(mask, cluster_ok=False)
-    log({"kernel": "B4 ccl_tiled", "input_shape": list(mask.shape),
+    log({"kernel": name, "input_shape": list(mask.shape),
          "iters": iters, "foreground_frac": float(mask.float().mean()),
          "plan": plan, "max_abs_err": 0.0,
          **{f"{k}_{m}": v[m] for k, v in out.items()
             for m in ("ms", "plain_ms")}})
-    rec = record("B4 ccl_tiled", B4_SRC,
+    rec = record(name, B4_SRC,
                  (0.0, out["tiled_ccl"]["ms"], out["tiled_ccl"]["plain_ms"]),
                  *ccl_cost(mask, iters), INT32_OPS_PER_S, NO_LIBRARY_CCL)
     rec["plan"] = plan
@@ -2400,6 +2426,426 @@ def canopy_calib_eval_phase(dev, gpu_line):
     return counts
 
 
+# --- apps_stream: the stream, pose, capture, fusion and viewing CLIs, the
+# renderer and the frame mesh -------------------------------------------
+
+# a 1280x720 replay stream at the bench intrinsics: 60 mm tags 9 (mounted
+# upside down) and 16 on a plane at 0.5 m, the camera moving APPS_STEP a
+# frame; a second view from a camera turned 25 degrees about y and moved
+# so that it still faces the tags (a camera a few degrees off the plane's
+# normal leaves a 40-100 px tag's pose ambiguous between IPPE's branches)
+APPS_FRAMES = 8
+APPS_STEP = np.array([0.002, 0.001, 0.0])
+# validate_pose translation's two captures: one 120 mm tag 16 at 0.45 m
+# (243 px; single-tag PnP ranges a 110 px tag only to 1-3 mm), the camera
+# moved APPS_VALIDATE_STEP between them
+APPS_VALIDATE_TAG, APPS_VALIDATE_Z = 0.12, 0.45
+APPS_VALIDATE_STEP = np.array([0.01, 0.005, 0.0])
+APPS_VIEW_DEG = 25.0
+APPS_TARGET = np.array([-0.02, -0.03, CAD_Z])
+APPS_RENDER_POINTS = 1_000_000
+APPS_MESH_BATCH = 16
+
+
+def apps_view_pose():
+    """(R_wc, c) of the second view: turned APPS_VIEW_DEG about y and
+    placed 0.5 m from APPS_TARGET along its optical axis."""
+    a = np.radians(APPS_VIEW_DEG)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    return R, APPS_TARGET - 0.5 * R[:, 2]
+
+
+def apps_frame(R_wc, c, seed, tags=CAD_TAGS, tag=CAD_TAG, z0=CAD_Z,
+               window=260):
+    """(rgb (H,W,3) u8, depth (H,W) u16 mm) of the tag plane z = z0 seen
+    from a camera at c with camera-to-world rotation R_wc; tag 9 is
+    mounted upside down."""
+    img = np.full((H, W), 180.0, np.float32)
+    for tid, (x, y) in tags.items():
+        R_tag = np.diag([-1.0, -1.0, 1.0]) if tid == 9 else np.eye(3)
+        win = render_window(tid, R_wc.T @ R_tag,
+                            R_wc.T @ (np.array([x, y, z0]) - c), CAD_K,
+                            tag, window, supersample=2)
+        img = np.where(win != 180.0, win, img)
+    rgb = noisy_rgb(img[None], seed=seed)[0]
+    K = CAD_K.astype(np.float64)
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    d = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1],
+                  np.ones_like(u)], -1) @ R_wc.T
+    z = (z0 - c[2]) / d[..., 2]
+    z = z + np.random.default_rng(seed).normal(0, 0.0005, (H, W))
+    return rgb, np.round(z * 1000).astype(np.uint16)
+
+
+def apps_scene(d):
+    """Writes the stream (d/stream: color_<ts>.png + aligned_depth_<ts>.png,
+    u16 mm), the second view (d/view_b), the validate_pose captures
+    (d/cap_first, d/cap_last), a depth-camera frame for align_depth
+    (d/depth_cam.png, 640x360) and the intrinsics JSONs."""
+    def write(sub, ts, rgb, depth):
+        (d / sub).mkdir(exist_ok=True)
+        write_png(d / sub / f"color_{ts}.png", rgb, level=1)
+        write_png(d / sub / f"aligned_depth_{ts}.png", depth, level=1)
+
+    for k in range(APPS_FRAMES):
+        rgb, depth = apps_frame(np.eye(3), k * APPS_STEP, seed=20 + k)
+        write("stream", f"20250101_0000{k:02d}", rgb, depth)
+        if k == 0:
+            write_png(d / "depth_cam.png", depth[::2, ::2], level=1)
+    write("view_b", "20250101_000000",
+          *apps_frame(*apps_view_pose(), seed=40))
+    for k, sub in enumerate(("cap_first", "cap_last")):
+        write(sub, "20250101_000000", *apps_frame(
+            np.eye(3), k * APPS_VALIDATE_STEP, seed=30 + k,
+            tags={16: (0.0, 0.0)}, tag=APPS_VALIDATE_TAG,
+            z0=APPS_VALIDATE_Z, window=480))
+    K = CAD_K
+    intr = {"fx": float(K[0, 0]), "fy": float(K[1, 1]), "cx": float(K[0, 2]),
+            "cy": float(K[1, 2]), "width": W, "height": H}
+    (d / "K.json").write_text(json.dumps(intr))
+    (d / "K_depth.json").write_text(json.dumps(intr))
+    (d / "d2c.json").write_text(json.dumps(
+        {"R": np.eye(3).tolist(), "t": [0.015, 0.0, 0.0]}))
+
+
+def apps_runs(d, dev):
+    """(name, module, argv) of the ten CLIs' calls on the scene in d."""
+    from repas_tpu_torch.apps import (align_depth, capture_aligned,
+                                      detect_tags, estimate_pose,
+                                      fetch_intrinsics, fuse_views,
+                                      pack_replay, track_stream,
+                                      validate_pose, view_pointcloud)
+
+    K = ["--intrinsics", str(d / "K.json")]
+    tag = ["--tag-size", str(CAD_TAG)]
+    f0 = d / "stream"
+    c0, d0 = f0 / "color_20250101_000000.png", \
+        f0 / "aligned_depth_20250101_000000.png"
+    track = ["--source", str(f0), *K, *tag]
+    return [
+        ("track_stream", track_stream, track + ["--out",
+                                                str(d / "track.jsonl")]),
+        ("track_stream_robust", track_stream,
+         track + ["--robust", "--frames", "2", "--out",
+                  str(d / "robust.jsonl")]),
+        ("track_stream_temporal", track_stream,
+         track + ["--temporal", "--out", str(d / "temporal.jsonl")]),
+        ("detect_tags", detect_tags, [str(c0), "--json",
+                                      str(d / "det.json")]),
+        ("estimate_pose", estimate_pose,
+         ["--color", str(c0), "--depth", str(d0), *K, *tag, "--json",
+          str(d / "pose.json")]),
+        ("validate_pose", validate_pose,
+         ["translation", "--captures", str(d / "cap_first"),
+          str(d / "cap_last"), *K, "--tag-size", str(APPS_VALIDATE_TAG),
+          "--json", str(d / "translation.json")]),
+        ("align_depth", align_depth,
+         ["--depth", str(d / "depth_cam.png"), "--depth-intrinsics",
+          str(d / "K_depth.json"), "--color-intrinsics", str(d / "K.json"),
+          "--extrinsics", str(d / "d2c.json"), "--width", str(W),
+          "--height", str(H), "--out", str(d / "aligned" / "aligned.png")]),
+        ("capture_aligned", capture_aligned,
+         ["--source", str(f0), *K, "--frames", "1", "--colorize", "--out",
+          str(d / "captured")]),
+        ("fetch_intrinsics", fetch_intrinsics,
+         ["--color", str(d / "K.json"), "--depth", str(d / "K_depth.json"),
+          "--extrinsics", str(d / "d2c.json"), "--out",
+          str(d / "bundle.json")]),
+        ("pack_replay", pack_replay,
+         ["--input", str(f0), "--out", str(d / "packed"), "--colorize"]),
+        ("fuse_views", fuse_views,
+         ["--views", str(f0), str(d / "view_b"), *K, *tag, "--anchor-id",
+          "16", "--out", str(d / "fused.ply")]),
+        ("view_pointcloud", view_pointcloud,
+         [str(d / "fused.ply"), "--splat", "--orbit", "2", "--out",
+          str(d / "view")]),
+    ], ["--device", str(dev)]
+
+
+def apps_stream_clis(d, dev):
+    """Each CLI call warm, then timed with the launch counts reset just
+    before it. Returns (ms, launches per call, the B1-B4 inputs first
+    seen in the warm calls)."""
+    from repas_tpu_torch import pipeline
+    from repas_tpu_torch.kernels import (_build, ccl_cuda, ccl_tiled,
+                                         patch_extract)
+
+    runs, devarg = apps_runs(d, dev)
+    ms, launches = {}, {}
+    with Capture(ccl_cuda, "connected_components_cuda", True) as c1, \
+            Capture(patch_extract, "extract_windows") as c2, \
+            Capture(pipeline, "fused_pointcloud") as c3, \
+            Capture(ccl_tiled, "connected_components_tiled_cuda") as c4:
+        for name, app, argv in runs:
+            app.main(argv + devarg)
+        torch.cuda.synchronize()
+    for name, app, argv in runs:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        app.main(argv + devarg)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = dict(_build.launches)
+    return ms, launches, (c1.calls, c2.args, c3.args, c4.args)
+
+
+def apps_stream_checks(d):
+    """The CLIs' outputs against the scene's truth; returns the numbers."""
+    from repas_tpu_torch.io.meta import read_meta
+    from repas_tpu_torch.io.ply import read_ply
+    from repas_tpu_torch.io.image import read_image
+
+    def jsonl(name):
+        return [json.loads(line) for line in open(d / name)]
+
+    out, fails = {}, []
+    track = jsonl("track.jsonl")
+    p16 = np.array([CAD_TAGS[16][0], CAD_TAGS[16][1], CAD_Z])
+    err = [float(np.linalg.norm(np.subtract(r["anchor_P_depth"],
+                                            p16 - k * APPS_STEP))) * 1000
+           for k, r in enumerate(track)]
+    out["track_anchor_err_mm"] = err
+    if len(track) != APPS_FRAMES or any(sorted(r["ids"]) != [9, 16]
+                                        for r in track):
+        fails.append(f"track_stream ids {[r['ids'] for r in track]}")
+    if max(err) > 5.0:
+        fails.append(f"track_stream anchor {max(err)} mm off")
+    robust = jsonl("robust.jsonl")
+    out["robust_ids"] = [r["ids"] for r in robust]
+    if any(sorted(r["ids"]) != [9, 16] for r in robust):
+        fails.append(f"track_stream --robust ids {out['robust_ids']}")
+    modes = [r["mode"] for r in jsonl("temporal.jsonl")]
+    out["temporal_modes"] = modes
+    if modes != ["register"] + ["track"] * (APPS_FRAMES - 1):
+        fails.append(f"track_stream --temporal modes {modes}")
+    tr = json.loads((d / "translation.json").read_text())
+    delta = np.asarray(tr["deltas"][0]["delta_t"])
+    step = -APPS_VALIDATE_STEP
+    out["translation_delta_err_mm"] = float(np.linalg.norm(delta - step)) * 1e3
+    if out["translation_delta_err_mm"] > 2.0:
+        fails.append(f"validate_pose delta {delta} vs {step}")
+    det = json.loads((d / "det.json").read_text())[0]["detections"]
+    pose = json.loads((d / "pose.json").read_text())
+    out["detect_ids"] = sorted(x["id"] for x in det)
+    out["pose_anchor_err_mm"] = float(np.linalg.norm(
+        np.subtract(pose["anchor_P_depth"], p16))) * 1000
+    if out["detect_ids"] != [9, 16] or out["pose_anchor_err_mm"] > 5.0:
+        fails.append(f"detect_tags {out['detect_ids']}, estimate_pose "
+                     f"anchor {out['pose_anchor_err_mm']} mm")
+
+    # fuse_views: each view's points in the tag frame; near the tags the
+    # second view's lie on the first's (median nearest-neighbour distance)
+    meta = read_meta(d / "fused.meta.json")
+    n_a = meta["views"][0]["n_points"]
+    fused = read_ply(d / "fused.ply").points
+    a, b = fused[:n_a], fused[n_a:]
+    near_b = b[np.linalg.norm(b[:, :2], axis=1) < 0.1][::20]
+    near_a = a[np.linalg.norm(a[:, :2], axis=1) < 0.12][::4]
+    nn = nn_dist(near_b, near_a)
+    out["fuse_views"] = {"views": len(meta["views"]), "points": len(fused),
+                         "anchor_ids": [v["anchor_id"] for v in meta["views"]],
+                         "nn_median_mm": float(np.median(nn)) * 1000,
+                         "nn_p90_mm": float(np.percentile(nn, 90)) * 1000,
+                         "nn_checked": len(near_b)}
+    if len(meta["views"]) != 2 or out["fuse_views"]["nn_median_mm"] > 5.0:
+        fails.append(f"fuse_views {out['fuse_views']}")
+    imgs = [read_image(d / f"view_splat{i}.png") for i in range(2)]
+    out["splat_drawn_frac"] = [float((im != 255).any(-1).mean())
+                               for im in imgs]
+    if min(out["splat_drawn_frac"]) < 0.01:
+        fails.append(f"view_pointcloud drew {out['splat_drawn_frac']}")
+    return out, fails, fused
+
+
+def apps_stream_vs_cpu(d):
+    """align_depth and capture_aligned run again on the CPU port: their
+    files equal the card's (align_depth: a projection within an ulp of a
+    pixel edge may floor either way, ROADMAP C: at most 1e-4 of the
+    pixels)."""
+    from repas_tpu_torch.apps import align_depth, capture_aligned
+    from repas_tpu_torch.io.image import read_depth_png
+
+    runs, _ = apps_runs(d, "cpu")
+    runs = {name: (app, argv) for name, app, argv in runs}
+    cpu = d / "cpu"
+    cpu.mkdir()
+    app, argv = runs["align_depth"]
+    app.main([a.replace(str(d / "aligned"), str(cpu)) for a in argv]
+             + ["--device", "cpu"])
+    card = read_depth_png(d / "aligned" / "aligned.png")
+    host = read_depth_png(cpu / "aligned.png")
+    align_share = float((card != host).mean())
+    app, argv = runs["capture_aligned"]
+    app.main([a.replace(str(d / "captured"), str(cpu / "captured"))
+              for a in argv] + ["--device", "cpu"])
+    diff = []
+    for f in sorted((d / "captured").rglob("*")):
+        if f.is_file() and "meta" not in f.name:
+            g = cpu / "captured" / f.relative_to(d / "captured")
+            if f.read_bytes() != g.read_bytes():
+                diff.append(f.name)
+    if align_share > 1e-4 or diff:
+        raise AssertionError(f"card vs CPU: align_depth differs at "
+                             f"{align_share} of pixels, capture_aligned "
+                             f"files {diff}")
+    return {"align_depth_differ_share": align_share,
+            "capture_aligned_files_equal": True}
+
+
+def apps_render(fused, dev):
+    """render_pointcloud of APPS_RENDER_POINTS fused points (splat 2) into
+    1280x720 on the card: its CUDA-event ms (queued behind a spin kernel),
+    and its z-buffer and image against the CPU port's (the image may
+    differ only at pixels whose winners tie, where both devices apply the
+    same rule, so no pixel is expected to)."""
+    from repas_tpu_torch.viz.render import (orbit_views, render_pointcloud,
+                                            zbuffer)
+
+    sel = np.linspace(0, len(fused) - 1, APPS_RENDER_POINTS).astype(np.int64)
+    pts = np.asarray(fused, np.float32)[sel]
+    rgb = np.random.default_rng(0).integers(0, 256, (len(pts), 3))
+    xyzrgb = np.concatenate([pts, rgb], 1).astype(np.float32)
+    R, t = orbit_views(pts.mean(0), 0.9, n=8)[1]
+    K = CAD_K.astype(np.float32)
+    card = torch.from_numpy(xyzrgb).to(dev)
+    # the camera on the card: no host-to-device copy inside the timed calls
+    cam = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+           for a in (K, R, t)]
+
+    def render(x, cam=(K, R, t)):
+        return render_pointcloud(x, *cam, shape=(H, W))
+
+    ms = cuda_ms(lambda: render(card, cam), iters=10, queued=True)
+    host_ms_one, event_ms_one = host_and_device_ms(lambda: render(card, cam))
+    prof = device_profile(lambda: render(card, cam))
+    img, zb = render(card).cpu(), zbuffer(card, K, R, t, shape=(H, W)).cpu()
+    host = torch.from_numpy(xyzrgb)
+    img_cpu, zb_cpu = render(host), zbuffer(host, K, R, t, shape=(H, W))
+    if not torch.equal(zb, zb_cpu):
+        raise AssertionError(f"render z-buffer differs from the CPU's at "
+                             f"{int((zb != zb_cpu).sum())} pixels")
+    # pixels where more than one point passes the depth test
+    from repas_tpu_torch.viz import render as rmod
+
+    z, cam, Kt = rmod._project(host[:, :3], K, R, t)
+    valid, u, v = rmod._pixels(cam, Kt, z, 1e-3)
+    zf = zb_cpu.reshape(-1)
+    wins = torch.zeros(H * W, dtype=torch.int64)
+    for dv, du in rmod._offsets(2):
+        idx, ok = rmod._slots(valid, u, v, du, dv, H, W)
+        win = ok & (z <= zf[idx] * (1 + 1e-6))
+        wins.index_add_(0, idx, win.to(torch.int64))
+    tied = (wins > 1).reshape(H, W)
+    moved = (img != img_cpu).any(-1)
+    if bool((moved & ~tied).any()):
+        raise AssertionError(f"render image differs from the CPU's at "
+                             f"{int((moved & ~tied).sum())} untied pixels")
+    return {"points": len(pts), "ms": ms, "host_ms": host_ms_one,
+            "event_ms": event_ms_one, "profile": prof,
+            "tied_pixels": int(tied.sum()),
+            "differ_pixels": int(moved.sum()),
+            "drawn_pixels": int((zb < float("inf")).sum())}
+
+
+def apps_mesh(dev):
+    """sharded_frame_pipeline(process_frames) over the card named twice, at
+    batch APPS_MESH_BATCH, against the unsharded step, bit for bit."""
+    from repas_tpu_torch.core.config import PipelineConfig
+    from repas_tpu_torch.parallel import (frames_mesh, shard_batch,
+                                          sharded_frame_pipeline)
+    from repas_tpu_torch.pipeline import process_frames
+
+    rgbs_np, depths_np, K_np = bench_frames(APPS_MESH_BATCH)
+    rgbs = torch.from_numpy(rgbs_np).to(dev)
+    depths = torch.from_numpy(depths_np).to(dev)
+    K = torch.from_numpy(K_np).to(dev)
+    mesh = frames_mesh(devices=[dev, dev])
+    fn = lambda r, d: process_frames(r, d, K, PipelineConfig())  # noqa: E731
+    single = fn(rgbs, depths)
+    run = sharded_frame_pipeline(fn, mesh)
+    sharded = run(shard_batch(rgbs, mesh), shard_batch(depths, mesh))
+    ms = host_ms(lambda: run(shard_batch(rgbs, mesh),
+                             shard_batch(depths, mesh)), 3)
+    single_ms = host_ms(lambda: fn(rgbs, depths), 3)
+    leaves = list(zip([*single.detections, *single.pose, single.pointcloud],
+                      [*sharded.detections, *sharded.pose,
+                       sharded.pointcloud]))
+    bad = [i for i, (a, b) in enumerate(leaves)
+           if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+               a.view(torch.int32) if a.dtype.is_floating_point else a,
+               b.view(torch.int32) if b.dtype.is_floating_point else b)]
+    if bad:
+        raise AssertionError(f"sharded pipeline differs in leaves {bad}")
+    return {"mesh_devices": [str(x) for x in mesh.devices],
+            "batch": APPS_MESH_BATCH, "leaves_equal": len(leaves),
+            "sharded_step_ms": ms, "unsharded_step_ms": single_ms,
+            "device_count": torch.cuda.device_count()}
+
+
+def apps_stream_phase(dev, gpu_line):
+    """The last slice's entry points on the card: the ten CLIs in-process
+    on a 720p replay stream and a second view, their outputs against the
+    scene's truth, B1-B4 held against their plain twins at the phase's
+    inputs, the renderer at full width and the mesh over a repeated
+    device. Returns (the phase's kernel records, the phase's B1-B4
+    launches)."""
+    import pathlib
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        apps_scene(d)
+        scene_s = time.perf_counter() - t0
+        ms, launches, (b1, b2, b3, b4) = apps_stream_clis(d, dev)
+        totals = {k: sum(v[k] for v in launches.values())
+                  for k in ("ccl", "patch_extract", "pointcloud",
+                            "ccl_tiled")}
+        low = [k for k in ("ccl", "patch_extract", "pointcloud")
+               if launches["track_stream"][k] < 1]
+        if low:
+            raise AssertionError(f"track_stream did not launch {low}")
+        if (launches["track_stream_robust"]["ccl_tiled"] < 1
+                and launches["fuse_views"]["ccl_tiled"] < 1):
+            raise AssertionError("B4 not launched by track_stream --robust "
+                                 "nor fuse_views")
+        if b2 is None or b3 is None or b4 is None:
+            raise AssertionError("the CLIs never called B2, B3 or B4")
+        records = [check_b1(f"B1 ccl (apps_stream {tuple(a[0].shape)})", *a)
+                   for a, _ in b1]
+        (pyr, origins, ah, aw), _ = b2
+        records.append(check_b2(
+            f"B2 patch_extract (apps_stream {tuple(pyr.shape)}, {ah}x{aw} "
+            "windows)", pyr, origins, ah, aw))
+        (depth, rgb32, K), kw = b3
+        records.append(check_b3(f"B3 pointcloud (apps_stream "
+                                f"{tuple(depth.shape)})", depth, rgb32, K,
+                                kw["scale"]))
+        (mask, iters), _ = b4
+        records.append(check_b4(mask, iters, f"B4 ccl_tiled (apps_stream "
+                                              f"{tuple(mask.shape)})"))
+        keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
+                "B4": "ccl_tiled"}
+        for rec in records:
+            rec["launches"] = totals[keys[rec["name"][:2]]]
+
+        checks, fails, fused = apps_stream_checks(d)
+        log({"phase": "apps_stream", "app_ms": ms, "launches": launches,
+             "scene_s": scene_s, **checks, "gpu": gpu_line})
+        if fails:
+            raise AssertionError(f"apps_stream: {fails}")
+        log({"phase": "apps_stream_vs_cpu", **apps_stream_vs_cpu(d)})
+        log({"phase": "apps_render", **apps_render(fused, dev),
+             "gpu": gpu_line})
+    log({"phase": "apps_mesh", **apps_mesh(dev), "gpu": gpu_line})
+    phase_s = time.perf_counter() - t0
+    log({"phase": "apps_stream_timing", "phase_s": phase_s,
+         "kernel_launches": totals, "gpu": gpu_line})
+    return records, totals
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (see the module docstring).")
@@ -2498,11 +2944,14 @@ def main(argv=None) -> int:
         registration_phase(dev, gpu_line)
         records += cad_chain_phase(dev, gpu_line, args.keep)
         counts = canopy_calib_eval_phase(dev, gpu_line)
+        apps_records, apps_counts = apps_stream_phase(dev, gpu_line)
+        records += apps_records
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled"}
     for rec in records:
         rec["launches_canopy_calib_eval"] = counts.get(keys[rec["name"][:2]],
                                                        0)
+        rec["launches_apps_stream"] = apps_counts[keys[rec["name"][:2]]]
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

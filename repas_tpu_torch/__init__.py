@@ -23,17 +23,19 @@ never jax and nothing from ``repas_tpu``:
             pivoting surface reconstruction (``reconstruct``)
   io/       PLY / STL geometry, sidecar metadata, pose txt, images (the
             native PNG codec, built at first use), byte-identical to the
-            reference's writers
+            reference's writers; the replay camera backend and the
+            pose-sequence dataset
   canopy/   plant-canopy height: Canny + Hough bar detection, colour-
             model plant segmentation, ``measure_plant_height``
   calib/    checkerboard corners, sub-pixel refinement, Zhang + LM
             ``calibrate_camera``
   eval/     correspondence and point-to-mesh error reports
-  viz/      host matplotlib scenes and the depth colorizer
-  utils/    the [TAG]-prefixed loggers
-  apps/     the CLIs generate_pointcloud, crop_scene, place_cad,
-            apply_6dof, refine_icp, ply_to_stl, detect_canopy,
-            calibrate, error_report
+  parallel/ the single-controller frame mesh: shards of a batch run on
+            a list of devices (one may repeat), each on its own stream
+  viz/      host matplotlib scenes, the depth colorizer, the z-buffer
+            splat renderer and the self-contained HTML viewer
+  utils/    the [TAG]-prefixed loggers and the profiling hooks
+  apps/     the reference's 19 CLIs
             (``python -m repas_tpu_torch.apps.<name> ... --device cuda``)
 
 Entry points that take tensors run where their inputs lie. Entry points

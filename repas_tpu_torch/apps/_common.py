@@ -12,6 +12,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from repas_tpu_torch.core.calib import Intrinsics, load_intrinsics_json
 from repas_tpu_torch.io.image import read_depth_png, read_image
@@ -62,6 +63,22 @@ def load_depth_m(path, scale: float = 0.001) -> np.ndarray:
     if path.suffix == ".npy":
         return np.load(path).astype(np.float32)
     return read_depth_png(path, scale)
+
+
+def to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array as a tensor on `dev` (the port's jnp.asarray)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def to_host(nt):
+    """A NamedTuple of tensors (Detections, FusedPose) as host numpy
+    arrays."""
+    return type(nt)(*(x.cpu().numpy() for x in nt))
+
+
+def frame0(nt):
+    """Frame 0 of a batched NamedTuple of tensors, as host numpy arrays."""
+    return to_host(type(nt)(*(x[0] for x in nt)))
 
 
 def emit_json(obj, path=None):

@@ -2,7 +2,8 @@
 
 Port of ``repas_tpu/detect/detector.py`` (``Detections``,
 ``_support_points``, ``_quad_from_support``, ``_refine_edges``,
-``_apply_h``, ``_sharpen_grid``, ``_decode_quad``, ``detect_tags``) with
+``_apply_h``, ``_sharpen_grid``, ``_decode_quad``, ``detect_tags``,
+``detect_tags_batch``) with
 the frame batch written out: every stage works on (B, ...) tensors and
 the candidate slots are a second fixed dimension, so there is no Python
 loop over frames or candidates and no host sync.
@@ -305,8 +306,9 @@ def _solve_spd3(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=8)
 def _decode_tables(device: torch.device):
-    """The codebook bits (587,36) bool and rotation permutations (4,36),
-    copied to `device` once."""
+    """The active codebook's bits (N,36) bool (N = 587 for the default
+    table) and rotation permutations (4,36), copied to `device` once;
+    ``tag_families.set_active_codebook`` clears this cache."""
     return (torch.as_tensor(tag_families.tag_family_bits(), device=device),
             torch.as_tensor(tag_families.rotation_perms(), dtype=torch.int64,
                             device=device))
@@ -557,3 +559,10 @@ def detect_tags(img: torch.Tensor,
                                  0.0)
         return det, cand_bbox, cand_score
     return det
+
+
+def detect_tags_batch(imgs: torch.Tensor,
+                      config: DetectorConfig = DetectorConfig()) -> Detections:
+    """Detector over a frame batch (N,H,W[,3]): the reference's vmapped
+    ``detect_tags``; the port's ``detect_tags`` is batched already."""
+    return detect_tags(imgs, config)

@@ -3,7 +3,8 @@
 Port of ``repas_tpu/kernels/ccl.py``: ``connected_components`` (dispatch
 by size and device, with ``MAX_VMEM_PIXELS``),
 its plain version (``_connected_components_xla`` with ``jump_every=0``),
-``_component_runs`` and both paths of ``top_k_components``. All functions
+``component_areas``, ``_component_runs``, ``component_bboxes`` and both
+paths of ``top_k_components``. All functions
 take a leading batch dimension: masks and labels are (B,H,W).
 
 Labels are linear pixel indices; background pixels hold the sentinel
@@ -95,6 +96,42 @@ def connected_components_plain(mask: torch.Tensor, iters: int = 5
                     sentinel)
         labels = torch.where(mask, _neighbor_min(labels, sentinel), sentinel)
     return labels
+
+
+def component_areas(labels: torch.Tensor) -> torch.Tensor:
+    """Pixel count per label: (...,H,W) labels -> (...,H*W) float32, the
+    reference's scatter-add of ones into H*W+1 bins (the last one, the
+    background sentinel's, dropped)."""
+    h, w = labels.shape[-2:]
+    n = h * w
+    flat = labels.reshape(*labels.shape[:-2], n).to(torch.int64)
+    out = torch.zeros(*flat.shape[:-1], n + 1, dtype=torch.float32,
+                      device=labels.device)
+    return out.scatter_add_(-1, flat, torch.ones_like(flat, dtype=out.dtype)
+                            )[..., :n]
+
+
+def component_bboxes(labels: torch.Tensor):
+    """Per-label bounding boxes by scatter-min/max of the pixel
+    coordinates: (...,H,W) labels -> (xmin, xmax, ymin, ymax), each
+    (...,H*W) float32, +inf (mins) and -inf (maxes) where a label is
+    absent."""
+    h, w = labels.shape[-2:]
+    n = h * w
+    flat = labels.reshape(*labels.shape[:-2], n).to(torch.int64)
+    dev = labels.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
+    ys = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
+    xs, ys = xs.expand(flat.shape), ys.expand(flat.shape)
+
+    def scatter(src, op, fill):
+        out = torch.full((*flat.shape[:-1], n + 1), fill, dtype=torch.float32,
+                         device=dev)
+        return out.scatter_reduce_(-1, flat, src, op)[..., :n]
+
+    inf = float("inf")
+    return (scatter(xs, "amin", inf), scatter(xs, "amax", -inf),
+            scatter(ys, "amin", inf), scatter(ys, "amax", -inf))
 
 
 def _component_runs(flat: torch.Tensor, sentinel: int):

@@ -2,7 +2,8 @@
 
 Port of ``repas_tpu/kernels/image.py`` (``pack_rgb_u32``,
 ``gray_from_u32``, ``rgb_to_gray``, ``decimate``, ``adaptive_threshold``,
-``bilinear_sample_patch``, ``gaussian_blur``, ``gamma_lut``, ``clahe``,
+``bilinear_sample_patch``, ``extract_patches``, ``gaussian_blur``,
+``gamma_lut``, ``clahe``,
 ``sobel``, the morphology, ``bilinear_sample``, the 2-D affine helpers,
 ``warp_affine``, ``rgb_to_hsv_cv``, ``hsv_in_range``).
 The detector's functions broadcast over leading (batch) dimensions;
@@ -266,6 +267,24 @@ def bilinear_sample_patch(patch: torch.Tensor, uv: torch.Tensor
     wc = torch.clamp(1.0 - torch.abs(wi - u), min=0.0)          # (N,P,w)
     t = torch.bmm(wr.to(torch.bfloat16).to(torch.float32), patch)
     return torch.sum(t * wc, dim=-1).reshape(uv.shape[:-1])
+
+
+def extract_patches(img: torch.Tensor, starts_xy: torch.Tensor,
+                    size: tuple) -> torch.Tensor:
+    """(C,2) integer top-left corners (x, y) -> (C,ph,pw) patches of the
+    (H,W) image, one gather. Starts should be pre-clamped to keep slices
+    in bounds; as ``jax.lax.dynamic_slice`` does, a start past the last
+    fitting position is clamped to it. A negative start is clamped to 0,
+    as the port's other ``dynamic_slice`` counterparts do (the reference
+    would wrap it from the end first; ROADMAP C)."""
+    ph, pw = size
+    h, w = img.shape
+    ar_y = torch.arange(ph, device=img.device)
+    ar_x = torch.arange(pw, device=img.device)
+    sx = torch.clamp(starts_xy[:, 0].to(torch.int64), 0, max(w - pw, 0))
+    sy = torch.clamp(starts_xy[:, 1].to(torch.int64), 0, max(h - ph, 0))
+    return img[(sy[:, None] + ar_y)[:, :, None],
+               (sx[:, None] + ar_x)[:, None, :]]
 
 
 def _pad_edge(img: torch.Tensor, r: int) -> torch.Tensor:

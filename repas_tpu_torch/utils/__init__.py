@@ -1,5 +1,5 @@
-"""Logging helpers (port of repas_tpu/utils; the profiling helpers are not
-ported yet)."""
+"""Logging and profiling helpers (port of repas_tpu/utils)."""
 from repas_tpu_torch.utils.logging import get_logger
+from repas_tpu_torch.utils.profiling import stage_timer, FpsCounter
 
-__all__ = ["get_logger"]
+__all__ = ["get_logger", "stage_timer", "FpsCounter"]
