@@ -13,7 +13,9 @@
    CUDA events (the kernel's calls queued behind a spin kernel, so the
    time is the device's alone) and sets the time beside the kernel's
    bound (bytes over the memory rate or operations over the compute
-   rate, the larger); the CCL lines also print the band launch plan and,
+   rate, the larger; a window copy's bytes are the pyramid pixels under
+   some window, each read once, and the windows written once); the CCL
+   lines also print the band launch plan and,
    in cluster mode, cudaOccupancyMaxActiveClusters;
 4. resets the launch counts, runs the pipeline with synchronizing CUDA
    calls turned into errors (the step must not wait for the device),
@@ -117,9 +119,23 @@
    (CUDA events; z-buffer equal to the CPU port's, the image differing
    at most at tied pixels); sharded_frame_pipeline(process_frames) over
    the card named twice at batch 16 equal to the unsharded step;
-11. prints one JSON line of kernel results (with each kernel's launches
-   in the canopy_calib_eval and apps_stream phases), then, last, one
-   JSON line {"ok": true, "device": {...}}.
+11. the tools phase (repas_tpu_torch.tools, the port of the JAX repo's
+   measurement tools, and kernels B5/B6 of tools/micro_perf.py), with the
+   launch counts set to 0 before it: profile_stages --iters 3 (the 11
+   stage prefixes, detect_tags, the point cloud and the pipeline at
+   720p, batch 16), micro_perf with every section at 3 iterations,
+   reconstruct_compare --n 200000, each in-process and its output
+   printed; every timing line present with a finite sum, micro_perf's
+   "match: True" (B6 against the plain gather), each reconstruction
+   non-empty within 1 mm of the sphere; B1-B3, B5 and B6 launched; the
+   thresh, ccl and topk prefixes on the card equal to the CPU port's on
+   one frame; B5 (f32 and bf16) and B6 held exactly against their plain
+   versions at the inputs micro_perf gave them, timed beside their bound
+   and the one PyTorch indexing call that computes them (as for B2);
+   the phase's seconds;
+12. prints one JSON line of kernel results (B1-B6, with each kernel's
+   launches in the canopy_calib_eval, apps_stream and tools phases),
+   then, last, one JSON line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It needs one CUDA device and refuses to run without one.
@@ -127,8 +143,11 @@ result line. It needs one CUDA device and refuses to run without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
+import io
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -159,8 +178,9 @@ B3_OPS_PER_POINT = 14
 NO_LIBRARY_CCL = ("no PyTorch call computes a connected-component "
                   "labelling or a segmented scan (torch.cummin has no "
                   "segments)")
-NO_LIBRARY_B2 = ("no PyTorch call extracts windows at per-window origins "
-                 "in one call")
+LIBRARY_GATHER = ("one advanced-indexing call pyr[bidx, rows[..., :, None], "
+                  "cols[..., None, :]] (the plain version's gather), its "
+                  "index tensors built beforehand")
 NO_LIBRARY_B3 = ("no PyTorch call back-projects a depth image with its "
                  "colours in one call")
 TAG_ID = 9
@@ -500,6 +520,11 @@ B3_SRC = ("repas_tpu_torch/kernels/csrc/pointcloud.cu",
 # counterpart of _make_scan_kernel, is ccl_tiled.cu
 B4_SRC = ("repas_tpu_torch/kernels/csrc/ccl.cu",
           "repas_tpu/kernels/ccl_pallas.py:108")
+# the two Pallas kernels of the measurement tool tools/micro_perf.py
+B5_SRC = ("repas_tpu_torch/kernels/csrc/patch_extract.cu",
+          "tools/micro_perf.py:108")
+B6_SRC = ("repas_tpu_torch/kernels/csrc/patch_extract.cu",
+          "tools/micro_perf.py:289")
 
 
 def record(name, src, err_ms, nbytes, ops, ops_per_s, library_note,
@@ -564,19 +589,107 @@ def check_b1(name, mask, iters):
     return rec
 
 
+def window_index(pyr, y, x, ah, aw):
+    """Broadcast (batch, row, column) index tensors of the (ah, aw)
+    windows at element origins y, x (B,C), each window inside the
+    pyramid."""
+    dev = pyr.device
+    rows = (y.long()[..., None] + torch.arange(ah, device=dev))[..., :, None]
+    cols = (x.long()[..., None] + torch.arange(aw, device=dev))[..., None, :]
+    bidx = torch.arange(pyr.shape[0], device=dev)[:, None, None, None]
+    return bidx, rows, cols
+
+
+def window_bytes(pyr, y, x, ah, aw, starts):
+    """Bytes a window copy must move, for the (ah, aw) windows at element
+    origins y, x (B,C): the pyramid pixels under some window read once
+    (the union of the windows; a pixel no window covers need not be read,
+    and one that several cover need be read only once), the starts read
+    once, the windows written once."""
+    covered = torch.zeros(pyr.shape, dtype=torch.bool, device=pyr.device)
+    covered[window_index(pyr, y, x, ah, aw)] = True
+    return ((int(covered.sum()) + y.numel() * ah * aw) * pyr.element_size()
+            + starts.numel() * starts.element_size())
+
+
+def gather_ms(pyr, y, x, ah, aw, expect):
+    """CUDA-event time of the one PyTorch call that computes B2, B5 and B6
+    (LIBRARY_GATHER) at windows (ah, aw) from element origins y, x (B,C);
+    its result must equal `expect`."""
+    bidx, rows, cols = window_index(pyr, y, x, ah, aw)
+
+    def call():
+        return pyr[bidx, rows, cols]
+
+    if not torch.equal(call(), expect):
+        raise AssertionError("the library gather disagrees with the kernel")
+    return cuda_ms(call, queued=True)
+
+
 def check_b2(name, pyr, origins, ah, aw):
     from repas_tpu_torch.kernels import patch_extract
-    # the pyramid and the origins read once, the windows written once
-    nbytes = (pyr.numel() * pyr.element_size()
-              + origins.numel() * origins.element_size()
-              + origins.shape[0] * origins.shape[1] * ah * aw
-              * pyr.element_size())
-    rec = record(name, B2_SRC, hold(
+    hp, w = pyr.shape[-2:]
+    y = torch.clamp(origins[..., 0], 0, hp - ah)
+    x = torch.clamp(origins[..., 1], 0, w - aw)
+    err_ms = hold(
         name, pyr.shape,
         lambda: patch_extract.extract_windows(pyr, origins, ah, aw),
         lambda: patch_extract.extract_windows_plain(pyr, origins, ah, aw),
-        windows=list(origins.shape[:-1]), window=[ah, aw]), nbytes, 0,
-        F32_OPS_PER_S, NO_LIBRARY_B2)
+        windows=list(origins.shape[:-1]), window=[ah, aw])
+    lib = gather_ms(pyr, y, x, ah, aw,
+                    patch_extract.extract_windows(pyr, origins, ah, aw))
+    rec = record(name, B2_SRC, err_ms,
+                 window_bytes(pyr, y, x, ah, aw, origins), 0, F32_OPS_PER_S,
+                 LIBRARY_GATHER, lib)
+    rec["input_shape"] = list(pyr.shape)
+    return rec
+
+
+def check_b5(name, pyr, starts_blk, ph, pw, tile_h):
+    """B5 (extract_windows_blk) against its plain version, exact. The
+    starts are checked once on the host first, as micro_perf does, so
+    the timed calls are the launches alone (the wrapper's own check
+    would synchronise each one)."""
+    from repas_tpu_torch.kernels import patch_extract
+    origins = patch_extract.blk_origins(pyr.shape, starts_blk, ph, pw,
+                                        tile_h).to(pyr.device)
+    y, x = origins[..., 0], origins[..., 1]
+
+    def kern():
+        return patch_extract.extract_windows_blk(pyr, starts_blk, ph, pw,
+                                                 tile_h, checked=True)
+
+    err_ms = hold(
+        name, pyr.shape, kern,
+        lambda: patch_extract.extract_windows_blk_plain(pyr, starts_blk, ph,
+                                                        pw, tile_h),
+        windows=list(starts_blk.shape[:-1]), window=[ph, pw], tile_h=tile_h,
+        dtype=str(pyr.dtype))
+    lib = gather_ms(pyr, y, x, ph, pw, kern())
+    rec = record(name, B5_SRC, err_ms,
+                 window_bytes(pyr, y, x, ph, pw, starts_blk), 0,
+                 F32_OPS_PER_S, LIBRARY_GATHER, lib)
+    rec["input_shape"] = list(pyr.shape)
+    return rec
+
+
+def check_b6(name, pyr, starts, ph, pw):
+    """B6 (extract_windows_exact) against its plain version, exact."""
+    from repas_tpu_torch.kernels import patch_extract
+    hp, w = pyr.shape[-2:]
+    y = torch.clamp(starts[..., 1], 0, hp - ph)
+    x = torch.clamp(starts[..., 0], 0, w - pw)
+    err_ms = hold(
+        name, pyr.shape,
+        lambda: patch_extract.extract_windows_exact(pyr, starts, ph, pw),
+        lambda: patch_extract.extract_windows_exact_plain(pyr, starts, ph,
+                                                          pw),
+        windows=list(starts.shape[:-1]), window=[ph, pw])
+    lib = gather_ms(pyr, y, x, ph, pw,
+                    patch_extract.extract_windows_exact(pyr, starts, ph, pw))
+    rec = record(name, B6_SRC, err_ms,
+                 window_bytes(pyr, y, x, ph, pw, starts), 0, F32_OPS_PER_S,
+                 LIBRARY_GATHER, lib)
     rec["input_shape"] = list(pyr.shape)
     return rec
 
@@ -2846,6 +2959,125 @@ def apps_stream_phase(dev, gpu_line):
     return records, totals
 
 
+# --- tools: the measurement tools (repas_tpu_torch.tools) and B5/B6 ------
+TOOLS_ITERS = "3"
+TOOLS_RC_N = "200000"
+TOOL_LINE = re.compile(r"^(.*?)\s+(\S+) ms/frame\s+\(sum=([^)]*)\)")
+PROFILE_NAMES = ["detect_tags (full)", "pointcloud", "full pipeline"]
+MICRO_NAMES = [
+    "bitcast(current)", "naive f32", "weighted+minor3sum", "u32pad",
+    "reshape-mean(current)", "strided 4-add", "row then col",
+    "reduce_window", "conv 2x2 s2", "vmap dynamic_slice f32",
+    "vmap dynamic_slice bf16", "pallas DMA f32 aligned 200x384",
+    "pallas DMA bf16 aligned 208x384", "xla dynamic_slice bf16",
+    "pallas aligned DMA+rewindow", "pnp ippe x8", "depth_correct x8",
+    "quat average", "fuse_tag_poses full", "ippe dist=None iters=8",
+    "ippe dist=None iters=4", "ippe dist=None iters=2",
+    "ippe dist=None iters=0", "ippe dist=zeros iters=8", "current (H*W,6)",
+    "planar (6,H*W)"]
+
+
+def run_tool(mod, argv):
+    """mod.main(argv) in-process, its standard output captured, then
+    printed; returns (seconds, its lines)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{mod.__name__} {argv} returned {rc}")
+    return secs, buf.getvalue().splitlines()
+
+
+def tool_times(lines, names, tool):
+    """{name: [ms/frame, sum]} of a tool's timing lines; every name in
+    `names` present, each time positive and each sum finite."""
+    got = {}
+    for ln in lines:
+        m = TOOL_LINE.match(ln)
+        if m:
+            got[m.group(1).strip()] = [float(m.group(2)), float(m.group(3))]
+    bad = [n for n in names if n not in got
+           or not (got[n][0] > 0 and np.isfinite(got[n][1]))]
+    if bad:
+        raise AssertionError(f"{tool}: missing or bad lines {bad}")
+    return got
+
+
+def tools_phase(dev, gpu_line):
+    """The measurement tools on the card: profile_stages (11 prefixes),
+    micro_perf (every section), reconstruct_compare (200k points), each
+    in-process with its launches counted; their lines checked; the
+    integer stage prefixes on the card against the CPU port; B5 and B6
+    held exactly against their plain versions at the inputs micro_perf
+    gave them. Returns (B5 and B6's records, the phase's launches)."""
+    from repas_tpu_torch.core.config import PipelineConfig
+    from repas_tpu_torch.kernels import _build
+    from repas_tpu_torch.tools import (micro_perf, profile_stages,
+                                       reconstruct_compare)
+
+    t0 = time.perf_counter()
+    secs = {}
+    _build.reset_launches()
+    secs["profile_stages"], lines = run_tool(
+        profile_stages, ["--iters", TOOLS_ITERS])
+    prof = tool_times(lines, [f"prefix:{st}" for st in profile_stages.STAGES]
+                      + PROFILE_NAMES, "profile_stages")
+    with Capture(micro_perf, "extract_windows_blk", True) as c5, \
+            Capture(micro_perf, "extract_windows_exact") as c6:
+        secs["micro_perf"], lines = run_tool(
+            micro_perf, [*micro_perf.SECTIONS, "--iters", TOOLS_ITERS])
+    micro = tool_times(lines, MICRO_NAMES, "micro_perf")
+    if "match: True" not in lines:
+        raise AssertionError("micro_perf dmapatch2: B6 does not match the "
+                             "plain gather")
+    secs["reconstruct_compare"], lines = run_tool(
+        reconstruct_compare, ["--n", TOOLS_RC_N])
+    counts = dict(_build.launches)
+    recon = [json.loads(ln) for ln in lines if ln.startswith('{"method"')]
+    if ([r["method"] for r in recon] != ["fft_poisson_128", "fft_poisson_256",
+                                         "ball_pivot"]
+            or any(r["tris"] < 1 or not r["rmse_mm"] < 1.0 for r in recon)):
+        raise AssertionError(f"reconstruct_compare: {recon}")
+    low = [k for k in ("ccl", "patch_extract", "pointcloud", "patch_blk",
+                       "patch_exact") if counts[k] < 1]
+    if low:
+        raise AssertionError(f"the tools did not launch {low}: {counts}")
+
+    # the integer stage prefixes on the card against the CPU port
+    rgbs, _, _ = profile_stages._frames(1, dev)
+    det_cfg = PipelineConfig().detector
+    for st in ("thresh", "ccl", "topk"):
+        a = profile_stages._stage_prefix(rgbs, det_cfg, st)
+        b = profile_stages._stage_prefix(rgbs.cpu(), det_cfg, st)
+        if float(a) != float(b):
+            raise AssertionError(f"profile_stages {st}: card {float(a)}, "
+                                 f"CPU {float(b)}")
+
+    if len(c5.calls) != 2 or c6.args is None:
+        raise AssertionError("micro_perf did not call B5 twice and B6")
+    records = []
+    for (pyr, st, ph, pw, tile_h), _ in c5.calls:
+        records.append(check_b5(
+            f"B5 patch_blk ({str(pyr.dtype)[6:]} {tuple(pyr.shape)}, "
+            f"{ph}x{pw} windows, tile {tile_h})", pyr, st, ph, pw, tile_h))
+    (pyr, st, ph, pw), _ = c6.args
+    records.append(check_b6(f"B6 patch_exact ({tuple(pyr.shape)}, {ph}x{pw} "
+                            "windows)", pyr, st, ph, pw))
+    for rec in records:
+        rec["launches"] = counts[
+            "patch_blk" if rec["name"].startswith("B5") else "patch_exact"]
+    log({"phase": "tools", "seconds": secs, "profile_stages": prof,
+         "micro_perf": micro, "reconstruct_compare": recon,
+         "kernel_launches": counts, "gpu": gpu_line})
+    log({"phase": "tools_timing", "phase_s": time.perf_counter() - t0,
+         "gpu": gpu_line})
+    return records, counts
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (see the module docstring).")
@@ -2946,12 +3178,15 @@ def main(argv=None) -> int:
         counts = canopy_calib_eval_phase(dev, gpu_line)
         apps_records, apps_counts = apps_stream_phase(dev, gpu_line)
         records += apps_records
+        tools_records, tools_counts = tools_phase(dev, gpu_line)
+        records += tools_records
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
-            "B4": "ccl_tiled"}
+            "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact"}
     for rec in records:
-        rec["launches_canopy_calib_eval"] = counts.get(keys[rec["name"][:2]],
-                                                       0)
-        rec["launches_apps_stream"] = apps_counts[keys[rec["name"][:2]]]
+        key = keys[rec["name"][:2]]
+        rec["launches_canopy_calib_eval"] = counts.get(key, 0)
+        rec["launches_apps_stream"] = apps_counts.get(key, 0)
+        rec["launches_tools"] = tools_counts[key]
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -46,6 +46,8 @@ from repas_tpu_torch.kernels.patch_extract import (ROW_TILE,
 # side of the per-candidate ROI window used for support points, refine
 # and decode; larger quads use a decimated pyramid level of the same size
 _PATCH = 192
+# px a quad keeps from its window's edges (refine search room)
+_MARGIN = 12.0
 
 _NDIRS = 16
 
@@ -407,6 +409,69 @@ def _decode_quad(quad: torch.Tensor, table: torch.Tensor, perms: torch.Tensor,
             tagness)
 
 
+def _refine_pyramid(gray: torch.Tensor, ph: int, pw: int):
+    """The bf16 row-concatenated refine pyramid of (B,h,w) gray images:
+    level blocks edge-padded to a ROW_TILE multiple with >= ROW_TILE rows
+    of slack, so an aligned window never crosses into the next level's
+    rows. Returns (pyr (B,Hp,w) bf16, row_off (L,) int32 first row of
+    each level, [(hl, wl)] each level's size)."""
+    h, w = gray.shape[-2:]
+    cover = min(ph, pw) - 2 * _MARGIN
+    n_levels = 1
+    while cover * 2 ** (n_levels - 1) < max(h, w) and n_levels < 4 \
+            and (min(h, w) >> n_levels) >= 8:
+        n_levels += 1
+    lvl_imgs = [gray]
+    for _ in range(1, n_levels):
+        lvl_imgs.append(decimate(lvl_imgs[-1], 2))
+    row_off, rows = [], []
+    for a in lvl_imgs:
+        hl_, wl_ = a.shape[-2:]
+        row_off.append(sum(r.shape[1] for r in rows))
+        hb = -(-(max(hl_, ph) + ROW_TILE) // ROW_TILE) * ROW_TILE
+        rows.append(F.pad(a[:, None], (0, w - wl_, 0, hb - hl_),
+                          mode="replicate")[:, 0].to(torch.bfloat16))
+    pyr = torch.cat(rows, dim=1)                          # (B,Hp,W) bf16
+    return (pyr, const(tuple(row_off), torch.int32, gray.device),
+            [tuple(a.shape[-2:]) for a in lvl_imgs])
+
+
+def _candidate_patches(pyr: torch.Tensor, row_off: torch.Tensor, sizes,
+                       quads: torch.Tensor, ph: int, pw: int):
+    """Each candidate's (B,C,4,2) full-resolution quad gets the window of
+    the finest pyramid level whose (ph,pw) cover holds it with _MARGIN px
+    to spare (quads bigger than the deepest level's cover decode from the
+    deepest window without refinement). Returns (patches (B,C,AH,AW),
+    off (B,C,1,2) each window's origin in level pixels, scale (B,C,1,1)
+    each level's scale, fits (B,C))."""
+    qlo = torch.amin(quads, dim=-2)                       # (B,C,2) x,y
+    qhi = torch.amax(quads, dim=-2)
+    starts_l, fits_l = [], []
+    for lv, (hl_, wl_) in enumerate(sizes):
+        s = 2 ** lv
+        lo_l = (qlo - (s - 1) / 2.0) / s
+        hi_l = (qhi - (s - 1) / 2.0) / s
+        starts_l.append(torch.stack([
+            torch.clamp(torch.floor(lo_l[..., 0] - _MARGIN).to(torch.int32),
+                        0, max(wl_ - pw, 0)),
+            torch.clamp(torch.floor(lo_l[..., 1] - _MARGIN).to(torch.int32),
+                        0, max(hl_ - ph, 0))], dim=-1))
+        fits_l.append(((hi_l[..., 0] - lo_l[..., 0]) <= pw - 2 * _MARGIN)
+                      & ((hi_l[..., 1] - lo_l[..., 1]) <= ph - 2 * _MARGIN))
+    fits_all = torch.stack(fits_l, dim=-1)                # (B,C,L)
+    fits = torch.any(fits_all, dim=-1)
+    lvl = torch.where(fits, torch.argmax(fits_all.to(torch.int32), dim=-1),
+                      len(sizes) - 1)
+    starts = _gather_last2(torch.stack(starts_l, dim=-2), lvl[..., None])[
+        ..., 0, :]
+    scale = torch.exp2(lvl.to(torch.float32))[..., None, None]  # (B,C,1,1)
+    patches, ay, ax = extract_patches_pyramid(
+        pyr, row_off[lvl] + starts[..., 1], starts[..., 0], ph, pw)
+    off = torch.stack([ax, ay - row_off[lvl]],
+                      dim=-1).to(torch.float32)[..., None, :]   # (B,C,1,2)
+    return patches, off, scale, fits
+
+
 def detect_tags(img: torch.Tensor,
                 config: DetectorConfig = DetectorConfig(),
                 with_candidates: bool = False):
@@ -447,58 +512,10 @@ def detect_tags(img: torch.Tensor,
         # low-res pixel i covers full-res [i*dec, i*dec+dec-1]
         quads = quads * dec + (dec - 1) / 2.0
 
-    # bf16 row-concatenated pyramid: level blocks edge-padded to a
-    # ROW_TILE multiple with >= ROW_TILE rows of slack, so an aligned
-    # window never crosses into the next level's rows
     ph, pw = min(_PATCH, h), min(_PATCH, w)
-    margin = 12.0
-    cover = min(ph, pw) - 2 * margin
-    n_levels = 1
-    while cover * 2 ** (n_levels - 1) < max(h, w) and n_levels < 4 \
-            and (min(h, w) >> n_levels) >= 8:
-        n_levels += 1
-    lvl_imgs = [gray]
-    for _ in range(1, n_levels):
-        lvl_imgs.append(decimate(lvl_imgs[-1], 2))
-    row_off, rows = [], []
-    for a in lvl_imgs:
-        hl_, wl_ = a.shape[-2:]
-        row_off.append(sum(r.shape[1] for r in rows))
-        hb = -(-(max(hl_, ph) + ROW_TILE) // ROW_TILE) * ROW_TILE
-        rows.append(F.pad(a[:, None], (0, w - wl_, 0, hb - hl_),
-                          mode="replicate")[:, 0].to(torch.bfloat16))
-    pyr = torch.cat(rows, dim=1)                          # (B,Hp,W) bf16
-    row_off = const(tuple(row_off), torch.int32, dev)
-
-    qlo = torch.amin(quads, dim=-2)                       # (B,C,2) x,y
-    qhi = torch.amax(quads, dim=-2)
-    starts_l, fits_l = [], []
-    for lv in range(n_levels):
-        s = 2 ** lv
-        lo_l = (qlo - (s - 1) / 2.0) / s
-        hi_l = (qhi - (s - 1) / 2.0) / s
-        hl_, wl_ = lvl_imgs[lv].shape[-2:]
-        starts_l.append(torch.stack([
-            torch.clamp(torch.floor(lo_l[..., 0] - margin).to(torch.int32),
-                        0, max(wl_ - pw, 0)),
-            torch.clamp(torch.floor(lo_l[..., 1] - margin).to(torch.int32),
-                        0, max(hl_ - ph, 0))], dim=-1))
-        fits_l.append(((hi_l[..., 0] - lo_l[..., 0]) <= pw - 2 * margin)
-                      & ((hi_l[..., 1] - lo_l[..., 1]) <= ph - 2 * margin))
-    fits_all = torch.stack(fits_l, dim=-1)                # (B,C,L)
-    fits = torch.any(fits_all, dim=-1)
-    # quads bigger than the deepest level's cover decode from the deepest
-    # window without refinement
-    lvl = torch.where(fits, torch.argmax(fits_all.to(torch.int32), dim=-1),
-                      n_levels - 1)
-    starts = _gather_last2(torch.stack(starts_l, dim=-2), lvl[..., None])[
-        ..., 0, :]
-    scale = torch.exp2(lvl.to(torch.float32))[..., None, None]  # (B,C,1,1)
-
-    patches, ay, ax = extract_patches_pyramid(
-        pyr, row_off[lvl] + starts[..., 1], starts[..., 0], ph, pw)
-    off = torch.stack([ax, ay - row_off[lvl]],
-                      dim=-1).to(torch.float32)[..., None, :]   # (B,C,1,2)
+    pyr, row_off, sizes = _refine_pyramid(gray, ph, pw)
+    patches, off, scale, fits = _candidate_patches(pyr, row_off, sizes,
+                                                   quads, ph, pw)
     q_rel = (quads - (scale - 1) / 2.0) / scale - off
 
     C = quads.shape[1]

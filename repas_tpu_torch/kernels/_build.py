@@ -32,7 +32,8 @@ LIB_NAME = "librepas_kernels.so"
 
 # Wrapper calls that launched their kernel, by kernel. A wrapper adds one
 # where it launches, and nowhere else; callers may reset the counts.
-launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0}
+launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0,
+            "patch_blk": 0, "patch_exact": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -52,8 +53,9 @@ _SIGNATURES = {
     # mask, labels, out, agg_v, agg_b, B, H, W, along_rows, chunk, device,
     # stream
     "repas_seg_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # pyr, origins, out, B, C, Hp, W, ah, aw, device, stream
-    "repas_patch_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # pyr, starts, out, B, C, Hp, W, ah, aw, elem_size, yi, y_unit,
+    # x_unit, device, stream
+    "repas_patch_extract": [_P, _P, _P, *[_I] * 11, _P],
     # depth, rgb, K, scale, out, B, H, W, device, stream
     "repas_pointcloud": [_P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _P],
 }

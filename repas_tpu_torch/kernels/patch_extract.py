@@ -10,6 +10,12 @@ to (16, 128) tiles and the windows are (ph+16, pw+192), so the samplers
 absorb the residual through the returned origin. Where that geometry
 does not fit (small images) the windows degrade to the exact (ph, pw)
 ones at the given origins; both geometries go through the same kernel.
+
+The same kernel also carries the two window copies of the measurement
+tool ``tools/micro_perf.py``: B5 (``extract_windows_blk``, its
+``_extract_dma_batched``: windows at starts in tile units, f32 or bf16)
+and B6 (``extract_windows_exact``, the ``extract_dma`` closure of its
+``dmapatch2`` section: exact windows at arbitrary starts).
 """
 from __future__ import annotations
 
@@ -57,29 +63,120 @@ def extract_windows(pyr: torch.Tensor, origins: torch.Tensor,
     plain version for CPU tensors."""
     if not pyr.is_cuda:
         return extract_windows_plain(pyr, origins, ah, aw)
+    if pyr.dtype != torch.bfloat16:
+        raise ValueError(f"extract_windows: needs a bf16 pyramid, got "
+                         f"{pyr.dtype}")
+    _check_cuda_windows("extract_windows", pyr, origins, ah, aw)
+    return _launch("patch_extract", pyr, origins, ah, aw, 0, 1, 1)
+
+
+def _launch(key: str, pyr: torch.Tensor, starts: torch.Tensor, ah: int,
+            aw: int, yi: int, y_unit: int, x_unit: int) -> torch.Tensor:
+    """One launch of csrc/patch_extract.cu, counted under `key`: window
+    (b, c) at y = starts[b, c, yi] * y_unit, x = starts[b, c, 1 - yi] *
+    x_unit, clamped to fit. The caller has checked the inputs."""
     B, hp, w = pyr.shape
-    if (pyr.dtype != torch.bfloat16 or origins.dtype != torch.int32
-            or origins.device != pyr.device
-            or origins.shape[0] != B or origins.ndim != 3
-            or origins.shape[2] != 2):
-        raise ValueError(
-            "extract_windows: needs pyr (B,Hp,W) bf16 and origins (B,C,2) "
-            f"int32 on one device; got {tuple(pyr.shape)} {pyr.dtype}, "
-            f"{tuple(origins.shape)} {origins.dtype} on {origins.device}")
-    if not (0 < ah <= hp and 0 < aw <= w):
-        raise ValueError(f"extract_windows: window {ah}x{aw} does not fit "
-                         f"a {hp}x{w} pyramid")
-    if not (pyr.is_contiguous() and origins.is_contiguous()):
-        raise ValueError("extract_windows: inputs must be contiguous")
-    if pyr.data_ptr() % 16:
-        raise ValueError("extract_windows: pyramid storage must be 16-byte "
-                         "aligned for the vector copy")
-    C = origins.shape[1]
+    C = starts.shape[1]
     out = torch.empty((B, C, ah, aw), dtype=pyr.dtype, device=pyr.device)
     _build.launch("repas_patch_extract", pyr.device, pyr.data_ptr(),
-                  origins.data_ptr(), out.data_ptr(), B, C, hp, w, ah, aw)
-    _build.launches["patch_extract"] += 1
+                  starts.data_ptr(), out.data_ptr(), B, C, hp, w, ah, aw,
+                  pyr.element_size(), yi, y_unit, x_unit)
+    _build.launches[key] += 1
     return out
+
+
+def _check_cuda_windows(name: str, pyr: torch.Tensor, starts: torch.Tensor,
+                        ah: int, aw: int) -> None:
+    """B5's and B6's input checks: a (B,Hp,W) pyramid of 2- or 4-byte
+    elements and (B,C,2) int32 starts on its card, both contiguous, the
+    pyramid 16-byte aligned, the window no larger than the pyramid."""
+    B, hp, w = pyr.shape
+    if (pyr.element_size() not in (2, 4) or starts.dtype != torch.int32
+            or starts.device != pyr.device or starts.ndim != 3
+            or starts.shape[0] != B or starts.shape[2] != 2):
+        raise ValueError(
+            f"{name}: needs pyr (B,Hp,W) of 2- or 4-byte elements and "
+            f"starts (B,C,2) int32 on one device; got {tuple(pyr.shape)} "
+            f"{pyr.dtype}, {tuple(starts.shape)} {starts.dtype} on "
+            f"{starts.device}")
+    if not (0 < ah <= hp and 0 < aw <= w):
+        raise ValueError(f"{name}: window {ah}x{aw} does not fit a {hp}x{w} "
+                         "pyramid")
+    if not (pyr.is_contiguous() and starts.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if pyr.data_ptr() % 16:
+        raise ValueError(f"{name}: pyramid storage must be 16-byte aligned "
+                         "for the vector copy")
+
+
+def blk_origins(pyr_shape, starts_blk: torch.Tensor, ph: int, pw: int,
+                tile_h: int) -> torch.Tensor:
+    """B5's window origins (B,C,2) [y, x] in elements, on the host, from
+    starts in (tile_h, 128) tile units [x_block, y_block]; raises
+    ValueError when a window does not fit the pyramid (the TPU kernel's
+    DMA refuses such a start too). Reads the starts on the host."""
+    hp, w = pyr_shape[-2:]
+    s = starts_blk.detach().to("cpu", torch.int64)
+    y = s[..., 1] * tile_h
+    x = s[..., 0] * LANE_TILE
+    bad = (x < 0) | (y < 0) | (x + pw > w) | (y + ph > hp)
+    if bool(bad.any()):
+        b, c = (int(i) for i in bad.nonzero()[0])
+        raise ValueError(
+            f"extract_windows_blk: window {ph}x{pw} at block start "
+            f"{s[b, c].tolist()} (element [y, x] = [{int(y[b, c])}, "
+            f"{int(x[b, c])}]) of slot ({b}, {c}) does not fit a {hp}x{w} "
+            "pyramid")
+    return torch.stack([y, x], dim=-1)
+
+
+def extract_windows_blk_plain(pyr: torch.Tensor, starts_blk: torch.Tensor,
+                              ph: int, pw: int, tile_h: int) -> torch.Tensor:
+    """Plain PyTorch B5: pyr (B,Hp,W) any dtype, starts_blk (B,C,2) int32
+    [x_block, y_block] in (tile_h, 128) tile units -> (B,C,ph,pw), window
+    (b, c) = pyr[b, y_block*tile_h : +ph, x_block*128 : +pw]. Raises
+    ValueError when a window does not fit."""
+    origins = blk_origins(pyr.shape, starts_blk, ph, pw, tile_h)
+    return extract_windows_plain(pyr, origins.to(pyr.device), ph, pw)
+
+
+def extract_windows_blk(pyr: torch.Tensor, starts_blk: torch.Tensor,
+                        ph: int, pw: int, tile_h: int, *,
+                        checked: bool = False) -> torch.Tensor:
+    """B5 dispatch: the CUDA kernel for CUDA tensors (2- or 4-byte
+    elements), the plain version for CPU tensors. Either raises
+    ValueError, before any launch, when a window does not fit; on the
+    card that check reads the starts on the host (one synchronisation),
+    unless `checked` says the caller has already passed these starts
+    through ``blk_origins``. The kernel clamps every window into the
+    pyramid, so an unchecked start past the edge reads no memory out of
+    bounds; it is copied from the last origin that fits."""
+    if not pyr.is_cuda:
+        return extract_windows_blk_plain(pyr, starts_blk, ph, pw, tile_h)
+    _check_cuda_windows("extract_windows_blk", pyr, starts_blk, ph, pw)
+    if not checked:
+        blk_origins(pyr.shape, starts_blk, ph, pw, tile_h)
+    return _launch("patch_blk", pyr, starts_blk, ph, pw, 1, tile_h,
+                   LANE_TILE)
+
+
+def extract_windows_exact_plain(pyr: torch.Tensor, starts: torch.Tensor,
+                                ph: int, pw: int) -> torch.Tensor:
+    """Plain PyTorch B6: pyr (B,Hp,W), starts (B,C,2) int32 [x, y] ->
+    (B,C,ph,pw) exact windows, each start clamped so the window fits
+    (the reference clamps the cover's tile block, ``_mkinfo``, and its
+    yardstick ``dynamic_slice`` the start)."""
+    return extract_windows_plain(pyr, torch.flip(starts, dims=(-1,)), ph, pw)
+
+
+def extract_windows_exact(pyr: torch.Tensor, starts: torch.Tensor, ph: int,
+                          pw: int) -> torch.Tensor:
+    """B6 dispatch: the CUDA kernel (one launch) for CUDA tensors (2- or
+    4-byte elements), the plain version for CPU tensors."""
+    if not pyr.is_cuda:
+        return extract_windows_exact_plain(pyr, starts, ph, pw)
+    _check_cuda_windows("extract_windows_exact", pyr, starts, ph, pw)
+    return _launch("patch_exact", pyr, starts, ph, pw, 1, 1, 1)
 
 
 def extract_patches_pyramid(pyr: torch.Tensor, y0: torch.Tensor,

@@ -1,10 +1,12 @@
 """The hand-written CUDA kernels (B1 CCL, B2 patch extraction, B3 point
-cloud, B4 segmented scans and tiled CCL) against their plain PyTorch
-versions, on the card.
+cloud, B4 segmented scans and tiled CCL, B5 and B6 the window copies of
+the measurement tool micro_perf) against their plain PyTorch versions,
+on the card.
 
 Marked ``cuda``: they skip where torch sees no CUDA device. On a machine
 with a card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
-Tolerances: B1, B2 and B4 exact; B3 rtol 1e-6 (same formula, same order).
+Tolerances: B1, B2, B4, B5 and B6 exact; B3 rtol 1e-6 (same formula,
+same order).
 A mask density of -1 makes an all-foreground mask, 1 an all-background one.
 """
 import numpy as np
@@ -174,6 +176,64 @@ def test_patch_extract_kernel_matches_plain(dev, shape, ah, aw, aligned):
     ref = patch_extract.extract_windows_plain(pyr, origins, ah, aw)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,ph,pw,tile_h", [
+    (torch.float32, 200, 384, 8),        # micro_perf's f32 windows
+    (torch.bfloat16, 208, 384, 16),      # its bf16 windows
+    (torch.float32, 40, 98, 8),          # element-wise path (odd width)
+])
+def test_patch_blk_kernel_matches_plain(dev, dtype, ph, pw, tile_h):
+    rng = np.random.default_rng(4)
+    pyr = torch.from_numpy(rng.standard_normal((16, 1512, 1280)).astype(
+        np.float32)).to(dev).to(dtype)
+    st = np.stack([rng.integers(0, (1280 - pw) // 128 + 1, (16, 48)),
+                   rng.integers(0, (1512 - ph) // tile_h + 1, (16, 48))],
+                  axis=-1).astype(np.int32)
+    st[0, 0] = [(1280 - pw) // 128, (1512 - ph) // tile_h]
+    st = torch.from_numpy(st).to(dev)
+    before = _build.launches["patch_blk"]
+    got = patch_extract.extract_windows_blk(pyr, st, ph, pw, tile_h)
+    patch_extract.blk_origins(pyr.shape, st, ph, pw, tile_h)
+    got_checked = patch_extract.extract_windows_blk(pyr, st, ph, pw, tile_h,
+                                                    checked=True)
+    assert _build.launches["patch_blk"] == before + 2
+    ref = patch_extract.extract_windows_blk_plain(pyr, st, ph, pw, tile_h)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+    assert torch.equal(got_checked, ref)
+
+
+def test_patch_blk_kernel_refuses_a_window_past_the_edge(dev):
+    pyr = torch.zeros((2, 1512, 1280), device=dev)
+    st = torch.zeros((2, 3, 2), dtype=torch.int32, device=dev)
+    st[1, 2, 0] = 8                      # 1024 + 384 > 1280 columns
+    before = _build.launches["patch_blk"]
+    with pytest.raises(ValueError, match="does not fit"):
+        patch_extract.extract_windows_blk(pyr, st, 200, 384, 8)
+    assert _build.launches["patch_blk"] == before
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 1520, 1280), torch.bfloat16),  # micro_perf's dmapatch2 section
+    ((2, 100, 150), torch.float32),
+])
+def test_patch_exact_kernel_matches_plain(dev, shape, dtype):
+    rng = np.random.default_rng(5)
+    B, hp, w = shape
+    pyr = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(dtype)
+    ph, pw = min(192, hp - 8), min(192, w - 6)
+    st = np.stack([rng.integers(0, w - pw + 20, (B, 48)),
+                   rng.integers(0, hp - ph + 20, (B, 48))],
+                  axis=-1).astype(np.int32)       # some starts clamp
+    st = torch.from_numpy(st).to(dev)
+    before = _build.launches["patch_exact"]
+    got = patch_extract.extract_windows_exact(pyr, st, ph, pw)
+    assert _build.launches["patch_exact"] == before + 1
+    ref = patch_extract.extract_windows_exact_plain(pyr, st, ph, pw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
 
 
 def test_pointcloud_kernel_matches_plain(dev):

@@ -1,4 +1,5 @@
-"""The port imports torch and numpy only: never jax, never repas_tpu."""
+"""The port imports torch and numpy only: never jax, never repas_tpu, nor
+the JAX repo's tools/ or __graft_entry__."""
 import ast
 import pathlib
 import subprocess
@@ -53,5 +54,6 @@ def test_no_jax_or_reference_imports(module, path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repas_tpu"), \
+            assert top not in ("jax", "jaxlib", "repas_tpu", "tools",
+                               "__graft_entry__"), \
                 f"{module} imports {name}"
