@@ -132,10 +132,13 @@
    one frame; B5 (f32 and bf16) and B6 held exactly against their plain
    versions at the inputs micro_perf gave them, timed beside their bound
    and the one PyTorch indexing call that computes them (as for B2);
-   the phase's seconds;
+   B6 on micro_perf's pyramid at negative, past-the-edge and edge starts,
+   exact and on the TMA path; the phase's seconds;
 12. prints one JSON line of kernel results (B1-B6, with each kernel's
-   launches in the canopy_calib_eval, apps_stream and tools phases),
-   then, last, one JSON line {"ok": true, "device": {...}}.
+   launches in the canopy_calib_eval, apps_stream and tools phases; each
+   B2, B5 and B6 record with the window copy's path, "vector", "tma" or
+   "scalar", and on the TMA path its plan: bh, bw, stages, grid,
+   smem_bytes), then, last, one JSON line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It needs one CUDA device and refuses to run without one.
@@ -626,22 +629,40 @@ def gather_ms(pyr, y, x, ah, aw, expect):
     return cuda_ms(call, queued=True)
 
 
-def check_b2(name, pyr, origins, ah, aw):
+def copy_path(pyr, C, ah, aw, x_align=1):
+    """The window copy's kernel for this geometry (``window_copy_path``)
+    and, on the TMA path, its plan: band rows, ring stages, CTAs and
+    shared bytes per CTA."""
+    from repas_tpu_torch.kernels import patch_extract
+    path, plan = patch_extract.launch_plan(pyr, C, ah, aw, x_align)
+    if plan is None:
+        return {"path": path}
+    return {"path": path, "bh": plan.bh, "bw": plan.bw,
+            "stages": plan.stages, "grid": plan.grid,
+            "smem_bytes": plan.smem_bytes}
+
+
+def check_b2(name, pyr, origins, ah, aw, x_align=1):
     from repas_tpu_torch.kernels import patch_extract
     hp, w = pyr.shape[-2:]
-    y = torch.clamp(origins[..., 0], 0, hp - ah)
-    x = torch.clamp(origins[..., 1], 0, w - aw)
+    y = patch_extract.slice_start(origins[..., 0], hp, ah)
+    x = patch_extract.slice_start(origins[..., 1], w, aw)
+    path = copy_path(pyr, origins.shape[1], ah, aw, x_align)
+
+    def kern():
+        return patch_extract.extract_windows(pyr, origins, ah, aw,
+                                             x_align=x_align)
+
     err_ms = hold(
-        name, pyr.shape,
-        lambda: patch_extract.extract_windows(pyr, origins, ah, aw),
+        name, pyr.shape, kern,
         lambda: patch_extract.extract_windows_plain(pyr, origins, ah, aw),
-        windows=list(origins.shape[:-1]), window=[ah, aw])
-    lib = gather_ms(pyr, y, x, ah, aw,
-                    patch_extract.extract_windows(pyr, origins, ah, aw))
+        windows=list(origins.shape[:-1]), window=[ah, aw], **path)
+    lib = gather_ms(pyr, y, x, ah, aw, kern())
     rec = record(name, B2_SRC, err_ms,
                  window_bytes(pyr, y, x, ah, aw, origins), 0, F32_OPS_PER_S,
                  LIBRARY_GATHER, lib)
     rec["input_shape"] = list(pyr.shape)
+    rec.update(path)
     return rec
 
 
@@ -670,6 +691,8 @@ def check_b5(name, pyr, starts_blk, ph, pw, tile_h):
                  window_bytes(pyr, y, x, ph, pw, starts_blk), 0,
                  F32_OPS_PER_S, LIBRARY_GATHER, lib)
     rec["input_shape"] = list(pyr.shape)
+    rec.update(copy_path(pyr, starts_blk.shape[1], ph, pw,
+                         patch_extract.LANE_TILE))
     return rec
 
 
@@ -677,32 +700,60 @@ def check_b6(name, pyr, starts, ph, pw):
     """B6 (extract_windows_exact) against its plain version, exact."""
     from repas_tpu_torch.kernels import patch_extract
     hp, w = pyr.shape[-2:]
-    y = torch.clamp(starts[..., 1], 0, hp - ph)
-    x = torch.clamp(starts[..., 0], 0, w - pw)
+    y = patch_extract.slice_start(starts[..., 1], hp, ph)
+    x = patch_extract.slice_start(starts[..., 0], w, pw)
+    path = copy_path(pyr, starts.shape[1], ph, pw)
     err_ms = hold(
         name, pyr.shape,
         lambda: patch_extract.extract_windows_exact(pyr, starts, ph, pw),
         lambda: patch_extract.extract_windows_exact_plain(pyr, starts, ph,
                                                           pw),
-        windows=list(starts.shape[:-1]), window=[ph, pw])
+        windows=list(starts.shape[:-1]), window=[ph, pw], **path)
     lib = gather_ms(pyr, y, x, ph, pw,
                     patch_extract.extract_windows_exact(pyr, starts, ph, pw))
     rec = record(name, B6_SRC, err_ms,
                  window_bytes(pyr, y, x, ph, pw, starts), 0, F32_OPS_PER_S,
                  LIBRARY_GATHER, lib)
     rec["input_shape"] = list(pyr.shape)
+    rec.update(path)
     return rec
+
+
+def check_b6_edges(pyr, ph, pw):
+    """B6 at negative, past-the-edge and edge starts on micro_perf's
+    pyramid, exact against its plain version (dynamic_slice's rule: a
+    negative start counts from the end, then every start is clamped so
+    the window fits), on the path micro_perf's call takes."""
+    from repas_tpu_torch.kernels import patch_extract
+    B, hp, w = pyr.shape
+    edge = [[-1, -1], [-7, -5], [-w, -hp], [-3 * w, 17], [w - pw, hp - ph],
+            [w - pw + 1, hp - ph + 1], [w, hp], [10 * w, -10 * hp],
+            [-pw, -ph], [0, 0], [w - 1, -1], [-(w - pw), 3]]
+    starts = torch.tensor([edge[(i + b) % len(edge)] for b in range(B)
+                           for i in range(len(edge))], dtype=torch.int32,
+                          device=pyr.device).reshape(B, len(edge), 2)
+    got = patch_extract.extract_windows_exact(pyr, starts, ph, pw)
+    ref = patch_extract.extract_windows_exact_plain(pyr, starts, ph, pw)
+    torch.cuda.synchronize()
+    exact = torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    path = copy_path(pyr, starts.shape[1], ph, pw)
+    log({"kernel": "B6 patch_exact (negative and edge starts)",
+         "input_shape": list(pyr.shape), "windows": list(starts.shape[:2]),
+         "window": [ph, pw], **path, "exact": exact})
+    if not exact or path["path"] != "tma":
+        raise AssertionError(f"B6 at negative and edge starts: exact "
+                             f"{exact}, path {path['path']}")
 
 
 def check_kernels(captured):
     """Each kernel against its plain version on the card, at the main
     path's inputs; returns the kernel records (launches filled later)."""
     (mask, iters), _ = captured["ccl"]
-    (pyr, origins, ah, aw), _ = captured["patch_extract"]
+    (pyr, origins, ah, aw), kw2 = captured["patch_extract"]
     (depth, rgb32, K), kw = captured["pointcloud"]
     return [
         check_b1("B1 ccl", mask, iters),
-        check_b2("B2 patch_extract", pyr, origins, ah, aw),
+        check_b2("B2 patch_extract", pyr, origins, ah, aw, **kw2),
         check_b3("B3 pointcloud", depth, rgb32, K, kw["scale"]),
     ]
 
@@ -853,8 +904,8 @@ def robust_phase(dev, gpu_line):
     records = [check_b1(f"B1 ccl (ladder {tuple(a[0].shape)})", *a)
                for a, _ in cap1.calls]
     records += [check_b2(f"B2 patch_extract (ladder {tuple(a[0].shape)}, "
-                         f"{a[2]}x{a[3]} windows)", *a)
-                for a, _ in cap2.calls]
+                         f"{a[2]}x{a[3]} windows)", *a, **kw)
+                for a, kw in cap2.calls]
     (mask, iters), _ = cap.args
     records.append(check_b4(mask, iters))
 
@@ -1108,8 +1159,8 @@ def tracker_phase(dev, gpu_line, records):
     new = [check_b1(f"B1 ccl (tracker {step_of(a[0].shape)} "
                     f"{tuple(a[0].shape)})", *a) for a, _ in c1.calls]
     new += [check_b2(f"B2 patch_extract (tracker {step_of(a[0].shape)} "
-                     f"{tuple(a[0].shape)}, {a[2]}x{a[3]} windows)", *a)
-            for a, _ in c2.calls]
+                     f"{tuple(a[0].shape)}, {a[2]}x{a[3]} windows)", *a, **kw)
+            for a, kw in c2.calls]
     shapes = sorted(tuple(a[0].shape) for a, _ in c1.calls)
     if shapes != [(1, 256, 256), (1, 360, 640)]:
         raise AssertionError(f"tracker B1 shapes {shapes}")
@@ -1973,11 +2024,11 @@ def cad_chain_phase(dev, gpu_line, keep=None):
 
         # B1 and B2 at the chain's shapes, exact against their plain twins
         (mask, iters), _ = captured[0]
-        (pyr, origins, ah, aw), _ = captured[1]
+        (pyr, origins, ah, aw), kw = captured[1]
         recs = [check_b1(f"B1 ccl (cad_chain {tuple(mask.shape)})", mask,
                          iters),
                 check_b2(f"B2 patch_extract (cad_chain {tuple(pyr.shape)}, "
-                         f"{ah}x{aw} windows)", pyr, origins, ah, aw)]
+                         f"{ah}x{aw} windows)", pyr, origins, ah, aw, **kw)]
         for rec in recs:
             key = "ccl" if rec["name"][:2] == "B1" else "patch_extract"
             rec["launches"] = sum(v[key] for v in launches.values())
@@ -2928,10 +2979,10 @@ def apps_stream_phase(dev, gpu_line):
             raise AssertionError("the CLIs never called B2, B3 or B4")
         records = [check_b1(f"B1 ccl (apps_stream {tuple(a[0].shape)})", *a)
                    for a, _ in b1]
-        (pyr, origins, ah, aw), _ = b2
+        (pyr, origins, ah, aw), kw = b2
         records.append(check_b2(
             f"B2 patch_extract (apps_stream {tuple(pyr.shape)}, {ah}x{aw} "
-            "windows)", pyr, origins, ah, aw))
+            "windows)", pyr, origins, ah, aw, **kw))
         (depth, rgb32, K), kw = b3
         records.append(check_b3(f"B3 pointcloud (apps_stream "
                                 f"{tuple(depth.shape)})", depth, rgb32, K,
@@ -3067,6 +3118,7 @@ def tools_phase(dev, gpu_line):
     (pyr, st, ph, pw), _ = c6.args
     records.append(check_b6(f"B6 patch_exact ({tuple(pyr.shape)}, {ph}x{pw} "
                             "windows)", pyr, st, ph, pw))
+    check_b6_edges(pyr, ph, pw)
     for rec in records:
         rec["launches"] = counts[
             "patch_blk" if rec["name"].startswith("B5") else "patch_exact"]

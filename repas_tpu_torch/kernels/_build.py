@@ -35,6 +35,9 @@ LIB_NAME = "librepas_kernels.so"
 launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0,
             "patch_blk": 0, "patch_exact": 0}
 
+# an entry point's return code when the CUDA driver lacks a call (csrc/*.cu)
+NO_DRIVER_CALL = -100000
+
 _lock = threading.Lock()
 _lib = None
 build_log = ""          # nvcc's output (ptxas -v resource use) of a build
@@ -54,8 +57,8 @@ _SIGNATURES = {
     # stream
     "repas_seg_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # pyr, starts, out, B, C, Hp, W, ah, aw, elem_size, yi, y_unit,
-    # x_unit, device, stream
-    "repas_patch_extract": [_P, _P, _P, *[_I] * 11, _P],
+    # x_unit, path, bh, bw, stages, grid, device, stream
+    "repas_patch_extract": [_P, _P, _P, *[_I] * 16, _P],
     # depth, rgb, K, scale, out, B, H, W, device, stream
     "repas_pointcloud": [_P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _P],
 }
@@ -150,7 +153,12 @@ def library() -> ctypes.CDLL:
 
 
 def check(name: str, rc: int) -> None:
-    """Raise if C entry point `name` returned a CUDA error."""
+    """Raise if C entry point `name` returned a CUDA error (a runtime
+    error code, or a CUDA driver call's CUresult negated)."""
+    if rc == NO_DRIVER_CALL:
+        raise RuntimeError(f"{name}: the CUDA driver lacks a call it needs")
+    if rc < 0:
+        raise RuntimeError(f"{name}: CUDA driver error (CUresult {-rc})")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: "
                            f"{library().repas_error_string(rc).decode()}")

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repas_tpu_torch.kernels.patch_extract import slice_start
+
 
 def pack_rgb_u32(img: torch.Tensor) -> torch.Tensor:
     """(...,H,W,3) uint8 -> (...,H,W) int32 with r | g<<8 | b<<16."""
@@ -273,16 +275,15 @@ def extract_patches(img: torch.Tensor, starts_xy: torch.Tensor,
                     size: tuple) -> torch.Tensor:
     """(C,2) integer top-left corners (x, y) -> (C,ph,pw) patches of the
     (H,W) image, one gather. Starts should be pre-clamped to keep slices
-    in bounds; as ``jax.lax.dynamic_slice`` does, a start past the last
-    fitting position is clamped to it. A negative start is clamped to 0,
-    as the port's other ``dynamic_slice`` counterparts do (the reference
-    would wrap it from the end first; ROADMAP C)."""
+    in bounds; each is taken by ``jax.lax.dynamic_slice``'s rule
+    (``patch_extract.slice_start``): a negative start counts from the
+    end, and a start past the last fitting position is clamped to it."""
     ph, pw = size
     h, w = img.shape
     ar_y = torch.arange(ph, device=img.device)
     ar_x = torch.arange(pw, device=img.device)
-    sx = torch.clamp(starts_xy[:, 0].to(torch.int64), 0, max(w - pw, 0))
-    sy = torch.clamp(starts_xy[:, 1].to(torch.int64), 0, max(h - ph, 0))
+    sx = slice_start(starts_xy[:, 0], w, pw)
+    sy = slice_start(starts_xy[:, 1], h, ph)
     return img[(sy[:, None] + ar_y)[:, :, None],
                (sx[:, None] + ar_x)[:, None, :]]
 

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (B1 CCL, B2 patch extraction, B3 point
 cloud, B4 segmented scans and tiled CCL, B5 and B6 the window copies of
 the measurement tool micro_perf) against their plain PyTorch versions,
-on the card.
+on the card; the window copies on each of their paths (vector, TMA,
+element by element) and at negative and edge starts.
 
 Marked ``cuda``: they skip where torch sees no CUDA device. On a machine
 with a card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
@@ -234,6 +235,74 @@ def test_patch_exact_kernel_matches_plain(dev, shape, dtype):
     ref = patch_extract.extract_windows_exact_plain(pyr, st, ph, pw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, ref)
+
+
+def _tma_case(seed, shape, dtype, C, ph, pw, dev):
+    """A pyramid and (B,C,2) [x, y] starts on the card: random in-range
+    starts, with negative, past-the-edge and edge starts in frame 0."""
+    rng = np.random.default_rng(seed)
+    B, hp, w = shape
+    pyr = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev).to(dtype)
+    st = np.stack([rng.integers(0, w - pw + 1, (B, C)),
+                   rng.integers(0, hp - ph + 1, (B, C))],
+                  axis=-1).astype(np.int32)
+    edge = [[-1, -1], [-w, -hp], [-3 * w, 5], [w - pw, hp - ph],
+            [w, hp], [10 * w, -7], [-pw, -ph], [w - pw + 1, 0]]
+    st[0, :len(edge)] = edge[:C]
+    return pyr, torch.from_numpy(st).to(dev)
+
+
+@pytest.mark.parametrize("shape,dtype,C,ph,pw", [
+    ((16, 1520, 1280), torch.bfloat16, 48, 192, 192),   # B6
+    ((16, 1520, 1280), torch.float32, 48, 192, 192),    # B6 in f32
+    ((1, 480, 256), torch.bfloat16, 16, 192, 192),      # the tracker's
+    ((2, 300, 640), torch.bfloat16, 9, 100, 264),       # two column boxes
+    ((2, 300, 640), torch.float32, 9, 37, 300),         # and a short band
+    ((2, 300, 640), torch.bfloat16, 9, 37, 250),        # a narrow last box
+    ((3, 90, 256), torch.bfloat16, 8, 7, 46),           # 92-byte rows
+])
+def test_patch_tma_matches_plain(dev, shape, dtype, C, ph, pw):
+    """B6 on the TMA path, exact, at random, negative and edge starts."""
+    pyr, st = _tma_case(6, shape, dtype, C, ph, pw, dev)
+    path, plan = patch_extract.launch_plan(pyr, C, ph, pw)
+    assert path == "tma" and plan.tasks >= plan.grid
+    before = _build.launches["patch_exact"]
+    got = patch_extract.extract_windows_exact(pyr, st, ph, pw)
+    assert _build.launches["patch_exact"] == before + 1
+    ref = patch_extract.extract_windows_exact_plain(pyr, st, ph, pw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, ref)
+
+
+def test_tracker_b2_takes_tma_and_matches_plain(dev):
+    """B2 in the tracker's degraded geometry (256-column ROI pyramid,
+    exact 192x192 windows at arbitrary x) through extract_patches_pyramid:
+    the TMA path, one launch, exact, negative and edge starts included."""
+    pyr, st = _tma_case(7, (1, 480, 256), torch.bfloat16, 16, 192, 192, dev)
+    y0, x0 = st[..., 1].contiguous(), st[..., 0].contiguous()
+    assert not patch_extract.aligned_ok(pyr.shape, 192, 192)
+    assert patch_extract.launch_plan(pyr, 16, 192, 192)[0] == "tma"
+    before = _build.launches["patch_extract"]
+    got, ay, ax = patch_extract.extract_patches_pyramid(pyr, y0, x0, 192, 192)
+    assert _build.launches["patch_extract"] == before + 1
+    ref, ayr, axr = patch_extract.extract_patches_pyramid(
+        pyr.cpu(), y0.cpu(), x0.cpu(), 192, 192)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int16), ref.view(torch.int16))
+    assert torch.equal(ay.cpu(), ayr) and torch.equal(ax.cpu(), axr)
+
+
+def test_patch_tma_refused_box_raises(dev):
+    """A tensor map the CUDA driver refuses (a 512-row box) returns its error
+    and the wrapper raises; nothing falls back to another path."""
+    pyr = torch.zeros((1, 600, 256), dtype=torch.bfloat16, device=dev)
+    st = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((1, 1, 512, 192), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="repas_patch_extract"):
+        _build.launch("repas_patch_extract", dev, pyr.data_ptr(),
+                      st.data_ptr(), out.data_ptr(), 1, 1, 600, 256, 512,
+                      192, 2, 1, 1, 1, 1, 512, 192, 2, 1)
 
 
 def test_pointcloud_kernel_matches_plain(dev):

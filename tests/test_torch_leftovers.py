@@ -7,8 +7,9 @@ component_bboxes, and kernels/image.py's extract_patches.
 Every output is held exactly equal: ids and valid flags under the same
 codebook swap, the codebook lists and minimum distances, areas and boxes
 of CCL labels of random masks (float32 counts and coordinates, +-inf for
-absent labels), patches at random in-bounds starts and at starts past
-the last fitting position (both packages clamp those).
+absent labels), patches at random in-bounds starts, at starts past
+the last fitting position (both packages clamp those) and at negative
+starts (both count those from the end first).
 """
 import numpy as np
 import pytest
@@ -143,7 +144,10 @@ def test_extract_patches_matches_reference():
     b = TI.extract_patches(torch.from_numpy(img), torch.from_numpy(starts),
                            (ph, pw)).numpy()
     assert b.shape == (20, ph, pw) and np.array_equal(a, b)
-    # a negative start reads from the image's first row/column
-    neg = TI.extract_patches(torch.from_numpy(img),
-                             torch.tensor([[-3, -5]]), (ph, pw))
-    assert torch.equal(neg[0], torch.from_numpy(img[:ph, :pw]))
+    # a negative start counts from the end, as dynamic_slice takes it
+    neg = np.array([[-3, -5], [-1, -1], [-70, -50]], np.int32)
+    a = np.asarray(JI.extract_patches(jnp.asarray(img), jnp.asarray(neg),
+                                      (ph, pw)))
+    b = TI.extract_patches(torch.from_numpy(img), torch.from_numpy(neg),
+                           (ph, pw)).numpy()
+    assert np.array_equal(a, b)

@@ -47,8 +47,8 @@ def test_extract_patches_pyramid_exact(shape, ph, pw, aligned):
 
 
 def test_extract_windows_plain_clamps_like_dynamic_slice():
-    # callers pass non-negative origins (dynamic_slice would wrap negative
-    # ones from the end); origins past the edge clamp so the window fits
+    # origins past the edge clamp so the window fits (negative origins
+    # count from the end: tests/test_torch_window_starts.py)
     pyr = torch.arange(2 * 20 * 30, dtype=torch.float32).reshape(2, 20, 30)
     origins = torch.tensor([[[0, 0], [18, 29]], [[3, 4], [100, 0]]],
                            dtype=torch.int32)
