@@ -134,8 +134,20 @@
    and the one PyTorch indexing call that computes them (as for B2);
    B6 on micro_perf's pyramid at negative, past-the-edge and edge starts,
    exact and on the TMA path; the phase's seconds;
-12. prints one JSON line of kernel results (B1-B6, with each kernel's
-   launches in the canopy_calib_eval, apps_stream and tools phases; each
+12. the graft_entry phase (repas_tpu_torch.graft_entry, the port of the
+   JAX repo's __graft_entry__.py): (a) entry() on the card, one warm
+   call, then one call with synchronizing CUDA calls turned into errors
+   and B1-B3's launches counted (each >= 1); tag 9 found, anchor z
+   within 5 mm of 0.45 m, ids equal to entry(device="cpu")'s and corners
+   within 1e-2 px of them; ms per 720p process_frame at batch 1 (host
+   clock, median of 10, and CUDA events); (b) dryrun_multichip(n) for n
+   = 2 and 8 over cuda:0 named n times, its printed line equal to the
+   CPU port's (devices ["cpu"] * n), B1-B3 launched by each, its seconds.
+   tools/canopy_reference_parity.py's port is host-only cv2 code and is
+   not run here (the card's machine may have no cv2);
+13. prints one JSON line of kernel results (B1-B6, with each kernel's
+   launches in the canopy_calib_eval, apps_stream, tools and graft_entry
+   phases; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
    "scalar", and on the TMA path its plan: bh, bw, stages, grid,
    smem_bytes), then, last, one JSON line {"ok": true, "device": {...}}.
@@ -426,6 +438,32 @@ def tracker_stream():
 def sync_warnings(caught):
     return [str(w.message) for w in caught
             if "synchroniz" in str(w.message).lower()]
+
+
+PIPELINE_KEYS = ("ccl", "patch_extract", "pointcloud")     # B1-B3
+
+
+def counted(fn, what, need=PIPELINE_KEYS, sync_error=False):
+    """fn() with every launch count set to 0 just before it (and, with
+    `sync_error`, synchronizing CUDA calls raising); returns (its output,
+    the counts read just after). Raises if a kernel of `need` was not
+    launched."""
+    from repas_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    low = [k for k in need if counts[k] < 1]
+    if low:
+        raise AssertionError(f"{what} never launched {low} (counts "
+                             f"{counts})")
+    return out, counts
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3,
@@ -1041,18 +1079,8 @@ def distorted_pipeline(dev, gpu_line):
 
     step(dist=dist)                        # warm-up: cached constants
     torch.cuda.synchronize()
-    _build.reset_launches()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = step(dist=dist)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    counts = dict(_build.launches)
-    missing = [k for k in ("ccl", "patch_extract", "pointcloud")
-               if counts[k] < 1]
-    if missing:
-        raise AssertionError(f"distorted pipeline never launched {missing}")
+    out, counts = counted(lambda: step(dist=dist), "distorted pipeline",
+                          sync_error=True)
     terr, rerr = pose_errors(out, R, t)
     if max(terr) >= 1.0 or max(rerr) >= 0.3:
         raise AssertionError(f"with dist: t errors {terr} mm, R errors "
@@ -2965,8 +2993,7 @@ def apps_stream_phase(dev, gpu_line):
         scene_s = time.perf_counter() - t0
         ms, launches, (b1, b2, b3, b4) = apps_stream_clis(d, dev)
         totals = {k: sum(v[k] for v in launches.values())
-                  for k in ("ccl", "patch_extract", "pointcloud",
-                            "ccl_tiled")}
+                  for k in launches["track_stream"]}
         low = [k for k in ("ccl", "patch_extract", "pointcloud")
                if launches["track_stream"][k] < 1]
         if low:
@@ -3130,6 +3157,83 @@ def tools_phase(dev, gpu_line):
     return records, counts
 
 
+# --- graft_entry: the port's entry points (repas_tpu_torch.graft_entry) ---
+GRAFT_DRYRUN_N = (2, 8)
+GRAFT_REPS = 10
+
+
+def graft_dryrun(n, devices=None):
+    """dryrun_multichip(n) with its printed line captured; returns
+    (result, line)."""
+    from repas_tpu_torch import graft_entry
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = graft_entry.dryrun_multichip(n, devices=devices)
+    return res, buf.getvalue().strip().splitlines()[-1]
+
+
+def graft_entry_phase(dev, gpu_line):
+    """entry() and dryrun_multichip(2 and 8) on the card, each counted, and
+    held against the CPU port. Returns the phase's B1-B3 launches."""
+    from repas_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    if any(a.device != dev for a in args):
+        raise AssertionError(f"entry() frame on {[a.device for a in args]}")
+    fn(*args)
+    out, entry_counts = counted(lambda: fn(*args), "graft_entry entry()",
+                                sync_error=True)
+    ids, corners, _, anchor, pc = (x.cpu() for x in out)
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    ref = cpu_fn(*cpu_args)
+    valid = ids >= 0
+    fails = []
+    if 9 not in ids[valid].tolist():
+        fails.append(f"tag 9 not found: ids {ids.tolist()}")
+    if not abs(float(anchor[2]) - TAG_Z) <= 0.005:
+        fails.append(f"anchor z {float(anchor[2])}")
+    if not torch.equal(ids, ref[0]):
+        fails.append(f"ids {ids.tolist()} vs CPU {ref[0].tolist()}")
+    cdiff = (corners - ref[1]).abs()[valid]
+    corner_err = float(cdiff.max()) if cdiff.numel() else 0.0
+    if not corner_err <= 1e-2:
+        fails.append(f"corners {corner_err} px from the CPU")
+    if tuple(pc.shape) != (6, H * W) or not bool(torch.isfinite(pc).all()):
+        fails.append(f"pointcloud {tuple(pc.shape)}")
+    if fails:
+        raise AssertionError(f"graft_entry entry(): {fails}")
+    step_ms = host_ms(lambda: fn(*args), GRAFT_REPS)
+    ev_ms = cuda_ms(lambda: fn(*args), iters=GRAFT_REPS, warmup=1)
+    log({"phase": "graft_entry", "entry_ids": ids.tolist(),
+         "anchor_z_m": float(anchor[2]), "vs_cpu_corner_max_px": corner_err,
+         "launches": entry_counts,
+         "process_frame_ms_median": float(np.median(step_ms)),
+         "process_frame_ms_all": step_ms,
+         "process_frame_ms_cuda_events": ev_ms, "gpu": gpu_line})
+
+    runs = [entry_counts]
+    for n in GRAFT_DRYRUN_N:
+        t = time.perf_counter()
+        (res, line), counts = counted(lambda: graft_dryrun(n),
+                                      f"dryrun_multichip({n})")
+        secs = time.perf_counter() - t
+        _, cpu_line = graft_dryrun(n, devices=["cpu"] * n)
+        print(line, flush=True)
+        if line != cpu_line:
+            raise AssertionError(f"dryrun_multichip({n}): card {line!r}, "
+                                 f"CPU {cpu_line!r}")
+        log({"phase": "graft_dryrun", **res, "fused_pts": list(
+            res["fused_pts"]), "launches": counts, "seconds": secs,
+             "equal_to_cpu_line": True, "gpu": gpu_line})
+        runs.append(counts)
+    totals = {k: sum(c[k] for c in runs) for k in runs[0]}
+    log({"phase": "graft_entry_timing", "phase_s": time.perf_counter() - t0,
+         "kernel_launches": totals, "gpu": gpu_line})
+    return totals
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (see the module docstring).")
@@ -3185,22 +3289,13 @@ def main(argv=None) -> int:
         records = check_kernels(captured)
 
         # the main path, counted, with any host sync inside it an error
-        _build.reset_launches()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = pipeline.process_frames(rgbs, depths, K, cfg)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        counts = dict(_build.launches)
+        out, counts = counted(
+            lambda: pipeline.process_frames(rgbs, depths, K, cfg),
+            "the main path", sync_error=True)
         keys = {"B1 ccl": "ccl", "B2 patch_extract": "patch_extract",
                 "B3 pointcloud": "pointcloud"}
         for rec in records:
             rec["launches"] = counts[keys[rec["name"]]]
-        zero = [r["name"] for r in records if r["launches"] < 1]
-        if zero:
-            raise AssertionError(f"kernels not launched by the main path: "
-                                 f"{zero} (counts {counts})")
 
         out_cpu0 = pipeline.process_frames(rgbs[:1].cpu(), depths[:1].cpu(),
                                            K_np, cfg)
@@ -3232,13 +3327,15 @@ def main(argv=None) -> int:
         records += apps_records
         tools_records, tools_counts = tools_phase(dev, gpu_line)
         records += tools_records
+        graft_counts = graft_entry_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact"}
     for rec in records:
         key = keys[rec["name"][:2]]
-        rec["launches_canopy_calib_eval"] = counts.get(key, 0)
-        rec["launches_apps_stream"] = apps_counts.get(key, 0)
+        rec["launches_canopy_calib_eval"] = counts[key]
+        rec["launches_apps_stream"] = apps_counts[key]
         rec["launches_tools"] = tools_counts[key]
+        rec["launches_graft_entry"] = graft_counts[key]
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -48,11 +48,15 @@ class Shards(tuple):
 
 def frames_mesh(n_devices: int | None = None, devices=None,
                 axis: str = "frames") -> FramesMesh:
-    """A 1-D mesh over `devices` (default: every CUDA device torch sees;
-    raises without a card), cut to the first `n_devices`."""
+    """A 1-D mesh over `devices`, cut to the first `n_devices`. Default:
+    the CUDA devices torch sees, each once, or repeated in turn up to
+    `n_devices` (so one card holds an n-shard mesh); raises without a
+    card."""
     if devices is None:
         host_data_device("cuda")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        count = torch.cuda.device_count()
+        devices = [f"cuda:{i % count}"
+                   for i in range(max(count, n_devices or 0))]
     devs = tuple(host_data_device(d) for d in devices)
     if n_devices is not None:
         devs = devs[:n_devices]

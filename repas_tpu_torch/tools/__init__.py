@@ -14,6 +14,11 @@ prints, under the same names:
   python -m repas_tpu_torch.tools.reconstruct_compare [--n N]
       Poisson at dims 128/256 and ball pivoting on a sphere cloud: one
       JSON line per method with its vertex error in mm
+  python -m repas_tpu_torch.tools.canopy_reference_parity --captures DIR \
+      [--stamps STAMP ...]
+      the reference's cv2 GrabCut canopy algorithm over five seeds per
+      capture; host-only OpenCV code, so it takes no --device and
+      prints no card line
 
 A ms/frame is the host clock around ``iters`` calls between two
 ``torch.cuda.synchronize()``, divided by the batch; the port runs

@@ -1,7 +1,8 @@
-"""Completeness of the port: every module of the JAX package has its
-counterpart file in repas_tpu_torch/, every name a JAX subpackage
-exports is exported by the port's subpackage, no module of the port
-imports jax or the JAX package, and every CLI of the port defaults to
+"""Completeness of the port: every module of the JAX package and every
+tool of tools/ has its counterpart file in repas_tpu_torch/, the entry
+points of __graft_entry__.py are exported by repas_tpu_torch.graft_entry,
+every name a JAX subpackage exports is exported by the port's
+subpackage, no module of the port imports jax or the JAX package, and every CLI of the port defaults to
 --device cuda and raises without a card.
 
 The JAX sources are read as text (ast), so this file imports no jax.
@@ -50,6 +51,18 @@ def test_every_exported_name_is_exported_by_the_port(init):
     missing = [n for n in names if not hasattr(port, n)]
     assert not missing, f"{mod} lacks {missing}"
     assert set(names) <= set(port.__all__)
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (ROOT / "tools").glob("*.py")))
+def test_every_jax_tool_has_a_port(name):
+    assert (PORT_PKG / "tools" / name).is_file(), f"tools/{name}"
+
+
+def test_graft_entry_has_a_port():
+    mod = importlib.import_module("repas_tpu_torch.graft_entry")
+    assert {"entry", "dryrun_multichip"} <= set(mod.__all__)
+    assert callable(mod.entry) and callable(mod.dryrun_multichip)
 
 
 def test_no_port_module_imports_jax():

@@ -43,6 +43,17 @@ def test_mesh_and_shards(mesh):
     assert frames_mesh(2, devices=["cpu"] * N).size == 2
 
 
+@pytest.mark.parametrize("n, want", [
+    (None, ["cuda:0", "cuda:1"]), (1, ["cuda:0"]),
+    (5, ["cuda:0", "cuda:1", "cuda:0", "cuda:1", "cuda:0"])])
+def test_frames_mesh_default_devices(monkeypatch, n, want):
+    # the default mesh: each CUDA device once, or repeated in turn up to n
+    # (no tensor is made, so two cards are only pretended)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert [str(d) for d in frames_mesh(n).devices] == want
+
+
 def test_sharded_pipeline_matches_single(mesh, jmesh):
     x = np.arange(N * 6, dtype=np.float32).reshape(N, 6)
     f_j = lambda a: jnp.sin(a) * 2.0 + jnp.sum(a, axis=-1, keepdims=True)
