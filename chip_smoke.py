@@ -145,9 +145,22 @@
    CPU port's (devices ["cpu"] * n), B1-B3 launched by each, its seconds.
    tools/canopy_reference_parity.py's port is host-only cv2 code and is
    not run here (the card's machine may have no cv2);
-13. prints one JSON line of kernel results (B1-B6, with each kernel's
-   launches in the canopy_calib_eval, apps_stream, tools and graft_entry
-   phases; each
+13. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
+   bench.py): its headline loop in-process (_time_pipeline at batch 16:
+   a gated warm call, then 10 queued calls with synchronizing CUDA
+   calls turned into errors, B1-B3 launched 11 times each) and its
+   ladder (_time_robust_ladder: B1, B2 and B4 launched, 7 valid best
+   slots), then ``python -m repas_tpu_torch.bench`` once as a
+   subprocess with REPAS_BENCH_BUDGET_S=400: exit 0, the headline line
+   first with a positive value, the superset line last with bench.py's
+   keys and the port's four departures, a measured cpu_fps (the port on
+   this host's CPU), vs_baseline = value / cpu_fps (within the line's
+   roundings), robust_tags_found 7, registration_1m_status "ok", device
+   equal to the card's line; the host's CPU count and the phase's
+   seconds;
+14. prints one JSON line of kernel results (B1-B6, with each kernel's
+   launches in the canopy_calib_eval, apps_stream, tools, graft_entry
+   and bench phases; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
    "scalar", and on the TMA path its plan: bh, bw, stages, grid,
    smem_bytes), then, last, one JSON line {"ok": true, "device": {...}}.
@@ -162,6 +175,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import os
 import re
 import struct
 import subprocess
@@ -173,8 +187,10 @@ import zlib
 import numpy as np
 import torch
 
-BATCH = 16
-H, W = 720, 1280
+from repas_tpu_torch.bench import (BATCH, H, REG_N, REG_RV, REG_SEED, REG_T,
+                                   ROBUST_BATCH, ROBUST_K, TAG_ID, TAG_Z, W,
+                                   _frames as bench_frames, bumpy_scene,
+                                   ladder_and_pose, robust_frames, rotation)
 
 # The card's peak rates for a kernel's bound (NVIDIA H100 SXM data sheet,
 # at its 700 W limit): device memory, f32 outside the tensor cores (an FMA
@@ -198,14 +214,10 @@ LIBRARY_GATHER = ("one advanced-indexing call pyr[bidx, rows[..., :, None], "
                   "index tensors built beforehand")
 NO_LIBRARY_B3 = ("no PyTorch call back-projects a depth image with its "
                  "colours in one call")
-TAG_ID = 9
-TAG_Z = 0.45
 STEPS = 10
 
-# robust phase: the bench's capture batch and intrinsics (bench.py)
-ROBUST_BATCH = 8
-ROBUST_K = np.array([[912.35, 0, 628.78], [0, 911.78, 348.98], [0, 0, 1.0]],
-                    np.float32)
+# robust phase (its batch and intrinsics, ROBUST_BATCH and ROBUST_K, are
+# the bench's: repas_tpu_torch.bench)
 ROBUST_IDS = [9, 16, 9, 16, 9, 16, 16, None]     # best-slot id per frame
 ROBUST_FOUND_A = [True] * 4 + [False] * 2 + [True, False]
 ROBUST_STEPS = 5
@@ -227,13 +239,10 @@ TRACK_MOTION = 30
 TRACK_FAR_T = np.array([-0.15, 0.1, 0.6], np.float32)
 TRACK_MODES = (["register"] + ["track"] * (TRACK_MOTION - 1)
                + ["lost"] * 3 + ["register", "track"])
-# registration phase: the JAX package's 1M-point bench scene
-# (bench.py:225-240) and its register_clouds call (seed 7, defaults:
-# capacity 8192, 8192 hypotheses, 100 ICP iterations, 64^3 ICP grid)
-REG_N = 1_000_000
-REG_SEED = 7
-REG_RV = (0.04, -0.06, 0.30)
-REG_T = (0.06, -0.04, 0.05)
+# registration phase: the bench's 1M-point scene (REG_N, REG_SEED, REG_RV,
+# REG_T from repas_tpu_torch.bench) and its register_clouds call (seed 7,
+# defaults: capacity 8192, 8192 hypotheses, 100 ICP iterations, 64^3 ICP
+# grid)
 REG_CAPACITY = 8192
 REG_SMALL = 20_000             # the card-against-CPU checks
 REG_SMALL_ICP_ITERS = 30       # bounds the CPU side's time
@@ -291,61 +300,6 @@ def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def bench_frames(batch: int):
-    """The bench frame (tag 9 at 0.45 m, 720p) repeated with per-frame
-    noise, as the JAX package's bench builds it."""
-    from repas_tpu_torch.detect.render import example_frame
-
-    rgb, depth, K = example_frame(H, W, tag_id=TAG_ID, z=TAG_Z)
-    rng = np.random.default_rng(0)
-    rgbs = np.stack([rgb] * batch)
-    rgbs = np.clip(rgbs.astype(np.int16)
-                   + rng.integers(-8, 8, rgbs.shape), 0, 255).astype(np.uint8)
-    depths = np.stack([depth] * batch)
-    return rgbs, depths, K
-
-
-def _rot(ax, ay, az):
-    ax, ay, az = np.radians([ax, ay, az])
-    rx = np.array([[1, 0, 0], [0, np.cos(ax), -np.sin(ax)],
-                   [0, np.sin(ax), np.cos(ax)]])
-    ry = np.array([[np.cos(ay), 0, np.sin(ay)], [0, 1, 0],
-                   [-np.sin(ay), 0, np.cos(ay)]])
-    rz = np.array([[np.cos(az), -np.sin(az), 0],
-                   [np.sin(az), np.cos(az), 0], [0, 0, 1]])
-    return rz @ ry @ rx
-
-
-def robust_frames(seed: int = 0):
-    """8 synthetic 1280x720 RGB frames, per-frame integer noise in
-    [-8, 8) from `seed`: tags 9/16 of 61-87 px at assorted poses (0-3),
-    38 px tags tilted 65 degrees that the decimated stage A cannot decode
-    but the stage-B ROI pass does (4, 5), a gamma-darkened frame (f**3,
-    6) and a textured frame without a tag (7)."""
-    from repas_tpu_torch.core.config import PnPConfig
-    from repas_tpu_torch.detect.render import render_tag_in_scene
-
-    tag = PnPConfig().tag_size_m
-    z_small = ROBUST_K[0, 0] * tag / 38.0
-    poses = [(9, _rot(0, 0, 0), (-0.08, -0.04, 0.35)),
-             (16, _rot(20, 0, 15), (0.1, 0.05, 0.40)),
-             (9, _rot(-15, 10, -30), (0.12, -0.08, 0.45)),
-             (16, _rot(15, 20, -10), (-0.12, 0.08, 0.45)),
-             (9, _rot(65, 0, 10), (0.02, 0.01, z_small)),
-             (16, _rot(65, 0, 10), (0.02, 0.01, z_small)),
-             (16, _rot(10, -10, 5), (0.02, 0.03, 0.4))]
-    imgs = [render_tag_in_scene(tid, R, np.asarray(t), ROBUST_K, tag, (H, W),
-                                background=180.0) for tid, R, t in poses]
-    imgs[6] = 255.0 * (imgs[6] / 255.0) ** 3
-    y, x = np.mgrid[0:H, 0:W]
-    imgs.append(140 + 50 * np.sin(x / 37.0) * np.cos(y / 53.0)
-                + 20 * np.sin((x + 2 * y) / 11.0))
-    rng = np.random.default_rng(seed)
-    f = np.stack(imgs) + rng.integers(-8, 8, (ROBUST_BATCH, H, W))
-    return np.repeat(np.clip(f, 0, 255)[..., None], 3, axis=-1).astype(
-        np.uint8)
-
-
 def render_window(tag_id, R, t, K, tag, size, dist=None, supersample=3):
     """(H,W) float32 gray frame holding one posed tag on a 180 background,
     rendered only in the size x size window around the tag's projected
@@ -375,11 +329,6 @@ def noisy_rgb(grays, seed=0):
     rng = np.random.default_rng(seed)
     f = np.clip(grays + rng.integers(-8, 8, grays.shape), 0, 255)
     return np.repeat(f[..., None], 3, axis=-1).astype(np.uint8)
-
-
-def rotation(rvec):
-    from repas_tpu_torch.core.transforms import rodrigues
-    return rodrigues(torch.tensor(rvec, dtype=torch.float32)).numpy()
 
 
 def angle_deg(Ra, Rb):
@@ -848,20 +797,6 @@ def check_results(out, out_cpu0, dev_name):
     log({"phase": "results", "best_ids": best_id.tolist(),
          "anchor_z_m": z.tolist(), "frame0_vs_cpu_corner_max_px": corner_err,
          "frame0_ids": ids_gpu.tolist()})
-
-
-def ladder_and_pose(frames, K, cfg, tag):
-    """The robust workload: staged ladder, then best-order PnP on each
-    frame's best slot (as bench.py's robust ladder times it)."""
-    from repas_tpu_torch.detect.robust import detect_tags_robust_staged
-    from repas_tpu_torch.pose.pnp import solve_pnp_best_order
-
-    det = detect_tags_robust_staged(frames, cfg)
-    best = torch.argmax(torch.where(det.valid, det.decision_margin, -1.0),
-                        dim=1)
-    rows = torch.arange(frames.shape[0], device=frames.device)
-    R, t, err, order = solve_pnp_best_order(det.corners[rows, best], K, tag)
-    return det, best, t, err
 
 
 def check_b4(mask, iters, name="B4 ccl_tiled"):
@@ -1384,21 +1319,6 @@ def calibrated_tracking_phase(dev, gpu_line, records):
     bundle_phase(dev, gpu_line)
     front_end_phase(dev, gpu_line)
     return new
-
-
-def bumpy_scene(n: int, seed: int = REG_SEED):
-    """bench.py's registration scene: n target points of the surface
-    z = 0.08 sin(7x) cos(5y) + 0.05 x^2 over [-0.5, 0.5]^2, and the
-    source that (R, t) maps onto them. Returns (src, tgt, R, t)."""
-    rng = np.random.default_rng(seed)
-    pts = np.column_stack([rng.uniform(-0.5, 0.5, n),
-                           rng.uniform(-0.5, 0.5, n),
-                           np.zeros(n)]).astype(np.float32)
-    pts[:, 2] = (0.08 * np.sin(7 * pts[:, 0]) * np.cos(5 * pts[:, 1])
-                 + 0.05 * pts[:, 0] ** 2)
-    R = rotation(REG_RV)
-    t = np.array(REG_T, np.float32)
-    return ((pts - t) @ R).astype(np.float32), pts, R, t
 
 
 def pose_error(T, R, t):
@@ -3234,6 +3154,103 @@ def graft_entry_phase(dev, gpu_line):
     return totals
 
 
+# --- bench: the port's headline benchmark (repas_tpu_torch.bench) ---
+# the bench's registration extra runs only with 240 s of its budget left
+# after the headline, the CPU probe and the ladder (bench.py's gate)
+BENCH_BUDGET_S = "400"
+BENCH_TIMEOUT_S = 480
+
+
+def bench_phase(dev, gpu_line):
+    """The bench's headline loop (every process_frames call after the warm
+    one with synchronizing CUDA calls raising) and its ladder in-process,
+    counted, then ``python -m repas_tpu_torch.bench`` once. Returns the
+    phase's launches."""
+    from repas_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    orig = bench.process_frames
+    calls = []
+
+    def sync_free(*args, **kwargs):
+        calls.append(None)
+        if len(calls) == 1:     # the warm call copies the constants
+            return orig(*args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    bench.process_frames = sync_free
+    try:
+        fps, pipe_counts = counted(
+            lambda: bench._time_pipeline(BATCH, bench.ITERS, device=dev),
+            "the bench's headline loop")
+    finally:
+        bench.process_frames = orig
+    low = {k: pipe_counts[k] for k in PIPELINE_KEYS
+           if pipe_counts[k] != bench.ITERS + 1}
+    if low:
+        raise AssertionError(f"the headline loop's {bench.ITERS + 1} calls "
+                             f"launched {low}")
+    (robust_fps, n_found), ladder_counts = counted(
+        lambda: bench._time_robust_ladder(dev), "the bench's ladder",
+        need=("ccl", "patch_extract", "ccl_tiled"))
+    if n_found != ROBUST_BATCH - 1:
+        raise AssertionError(f"the bench's ladder found {n_found} valid "
+                             f"best slots, expected {ROBUST_BATCH - 1}")
+    log({"phase": "bench_in_process", "headline_fps": fps,
+         "launches_headline": pipe_counts, "robust_synth_fps": robust_fps,
+         "robust_tags_found": n_found, "launches_ladder": ladder_counts,
+         "gpu": gpu_line})
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repas_tpu_torch.bench"], capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S, cwd=bench.ROOT,
+        env=dict(os.environ, REPAS_BENCH_BUDGET_S=BENCH_BUDGET_S))
+    secs = time.perf_counter() - t
+    print(proc.stdout.strip(), flush=True)
+    if proc.stderr.strip():
+        print("\n".join(proc.stderr.strip().splitlines()[-5:]), flush=True)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    fails = []
+    if proc.returncode != 0 or len(lines) != 2:
+        fails.append(f"exit {proc.returncode}, {len(lines)} JSON lines")
+    else:
+        head, last = lines
+        keys = list(bench._record(1.0, None, None, None))
+        if list(head) != keys or list(last) != keys:
+            fails.append(f"keys {list(head)} / {list(last)}")
+        if head["metric"] != "detect_pnp_pointcloud_720p" or not (
+                head["value"] > 0):
+            fails.append(f"headline {head}")
+        cpu, value, vs = last["cpu_fps"], last["value"], last["vs_baseline"]
+        # the line holds value and cpu_fps rounded to 2 and 3 decimals and
+        # vs_baseline from the unrounded pair: equal within those roundings
+        if not (cpu and cpu > 0 and last["cpu_fps_cached"] is False
+                and abs(vs - value / cpu)
+                <= 0.005 + vs * (0.005 / value + 0.0005 / cpu)):
+            fails.append(f"cpu_fps {cpu}, vs_baseline {vs}")
+        if last["robust_tags_found"] != ROBUST_BATCH - 1:
+            fails.append(f"robust_tags_found {last['robust_tags_found']}")
+        if last["registration_1m_status"] != "ok":
+            fails.append(f"registration {last['registration_1m_status']}")
+        if last["device"] != gpu_line:
+            fails.append(f"device {last['device']!r}")
+    if fails:
+        raise AssertionError(f"python -m repas_tpu_torch.bench: {fails}")
+    totals = {k: pipe_counts[k] + ladder_counts[k] for k in pipe_counts}
+    log({"phase": "bench", "subprocess_s": secs,
+         "phase_s": time.perf_counter() - t0, "host_cpus": os.cpu_count(),
+         "host_cpus_usable": len(os.sched_getaffinity(0)),
+         "kernel_launches": totals, "gpu": gpu_line})
+    return totals
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the port on one "
                                 "NVIDIA GPU (see the module docstring).")
@@ -3328,6 +3345,7 @@ def main(argv=None) -> int:
         tools_records, tools_counts = tools_phase(dev, gpu_line)
         records += tools_records
         graft_counts = graft_entry_phase(dev, gpu_line)
+        bench_counts = bench_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact"}
     for rec in records:
@@ -3336,6 +3354,7 @@ def main(argv=None) -> int:
         rec["launches_apps_stream"] = apps_counts[key]
         rec["launches_tools"] = tools_counts[key]
         rec["launches_graft_entry"] = graft_counts[key]
+        rec["launches_bench"] = bench_counts[key]
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

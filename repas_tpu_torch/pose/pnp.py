@@ -260,7 +260,9 @@ def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
     problems and all directions go through fn once."""
     tangents = torch.eye(6, dtype=p.dtype, device=p.device).reshape(
         6, *([1] * (p.ndim - 1)), 6).expand(6, *p.shape).contiguous()
-    with fwAD.dual_level():
+    # torch.inference_mode() turns forward AD off; the duals are made
+    # outside it
+    with torch.inference_mode(False), fwAD.dual_level():
         dual = fwAD.make_dual(p.expand(6, *p.shape).contiguous(), tangents)
         J = fwAD.unpack_dual(fn(dual)).tangent           # (6,...,M)
     return torch.movedim(J, 0, -1)

@@ -1,6 +1,8 @@
 """Completeness of the port: every module of the JAX package and every
 tool of tools/ has its counterpart file in repas_tpu_torch/, the entry
 points of __graft_entry__.py are exported by repas_tpu_torch.graft_entry,
+every function of bench.py but the state file's has its namesake in
+repas_tpu_torch.bench,
 every name a JAX subpackage exports is exported by the port's
 subpackage, no module of the port imports jax or the JAX package, and every CLI of the port defaults to
 --device cuda and raises without a card.
@@ -63,6 +65,23 @@ def test_graft_entry_has_a_port():
     mod = importlib.import_module("repas_tpu_torch.graft_entry")
     assert {"entry", "dryrun_multichip"} <= set(mod.__all__)
     assert callable(mod.entry) and callable(mod.dryrun_multichip)
+
+
+# functions of bench.py the port leaves out: the state file (the port
+# reads and writes none), its wall-clock helper (a closure in main) and
+# the real-capture loader (the captures are not in the repository)
+BENCH_NOT_PORTED = {"_load_state", "_save_state", "_remaining",
+                    "_real_capture_batch"}
+
+
+def test_bench_has_a_port():
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    mod = importlib.import_module("repas_tpu_torch.bench")
+    assert BENCH_NOT_PORTED <= names
+    missing = [n for n in sorted(names - BENCH_NOT_PORTED)
+               if not callable(getattr(mod, n, None))]
+    assert not missing, f"repas_tpu_torch/bench.py lacks {missing}"
 
 
 def test_no_port_module_imports_jax():
