@@ -145,10 +145,29 @@
    CPU port's (devices ["cpu"] * n), B1-B3 launched by each, its seconds.
    tools/canopy_reference_parity.py's port is host-only cv2 code and is
    not run here (the card's machine may have no cv2);
-13. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
-   bench.py): its headline loop in-process (_time_pipeline at batch 16:
-   a gated warm call, then 10 queued calls with synchronizing CUDA
-   calls turned into errors, B1-B3 launched 11 times each) and its
+13. the compiled phase (repas_tpu_torch.core.jit, the port's counterpart
+   of jax.jit: a step captured as a CUDA graph and replayed): (a)
+   pipeline.process_frames_jit at batch 16 on the bench frame and (b)
+   on the calibrated phase's scene with the lens's coefficients, each
+   against the eager process_frames: the capture's seconds and the
+   memory it reserves, one replay counted under sync-error mode (B1-B3
+   once each), integer outputs equal and floats bit-equal (or, named,
+   within the CPU port's tolerances), one replay under torch.profiler
+   showing B1-B3's device functions by name, the kernels and device ms
+   of an eager step and of a replay, the synced step's ms eager and
+   compiled in turns (median of 10, host clock and CUDA events), the
+   bench's queued loop's frames/s each, the output clones' device ms;
+   (c) entry()'s batch-1 720p process_frame under jit against the plain
+   step, bit-equal, B1-B3 once per replay, ms each; (d) the tracker's
+   35-frame stream through the compiled TagTracker and one whose steps
+   are the plain functions, frame by frame in turns: modes and poses
+   equal, one device read and B1/B2 once per compiled track step, ms
+   per track and register step each;
+14. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
+   bench.py): its headline loop in-process (_time_pipeline at batch 16,
+   the compiled step: a gated warm call that captures, then 10 queued
+   calls with synchronizing CUDA calls turned into errors, B1-B3
+   launched once per call and once more in the capture's warm-up) and its
    ladder (_time_robust_ladder: B1, B2 and B4 launched, 7 valid best
    slots), then ``python -m repas_tpu_torch.bench`` once as a
    subprocess with REPAS_BENCH_BUDGET_S=400: exit 0, the headline line
@@ -158,7 +177,7 @@
    roundings), robust_tags_found 7, registration_1m_status "ok", device
    equal to the card's line; the host's CPU count and the phase's
    seconds;
-14. prints one JSON line of kernel results (B1-B6, with each kernel's
+15. prints one JSON line of kernel results (B1-B6, with each kernel's
    launches in the canopy_calib_eval, apps_stream, tools, graft_entry
    and bench phases; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
@@ -2119,10 +2138,9 @@ def host_and_device_ms(fn):
     return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
 
 
-def device_profile(fn, top=5):
-    """One call of fn under torch.profiler: the number of device kernels,
-    their summed device ms, and the `top` kernels by device ms (names
-    shortened); a window with no device events reports zeros."""
+def profiled_kernels(fn):
+    """The device kernels' events of one call of fn under
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2130,8 +2148,15 @@ def device_profile(fn, top=5):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
+    return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_profile(fn, top=5):
+    """One call of fn under torch.profiler: the number of device kernels,
+    their summed device ms, and the `top` kernels by device ms (names
+    shortened); a window with no device events reports zeros."""
+    kern = profiled_kernels(fn)
     by_name = {}
     for e in kern:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
@@ -2683,8 +2708,14 @@ def apps_stream_clis(d, dev):
     from repas_tpu_torch.kernels import (_build, ccl_cuda, ccl_tiled,
                                          patch_extract)
 
+    from repas_tpu_torch.pose.track import TagTracker
+
     runs, devarg = apps_runs(d, dev)
     ms, launches = {}, {}
+    # the tracker's steps are captured anew in the warm calls, whose eager
+    # warm-up shows B1's and B2's inputs at the tracker's shapes
+    for step in (TagTracker._track, TagTracker._detect, TagTracker._ippe):
+        step.clear()
     with Capture(ccl_cuda, "connected_components_cuda", True) as c1, \
             Capture(patch_extract, "extract_windows") as c2, \
             Capture(pipeline, "fused_pointcloud") as c3, \
@@ -3154,6 +3185,281 @@ def graft_entry_phase(dev, gpu_line):
     return totals
 
 
+# --- compiled: the captured steps (repas_tpu_torch.core.jit) ---
+# where a replayed float is not bit-equal to the eager step's, the output
+# is named and held to the CPU port's tolerance against the JAX package
+# (tests/test_torch_pipeline.py; a rotation entry's sin(0.25 degrees)):
+# (atol, rtol); any other float must be bit-equal, integers equal
+COMPILED_TOL = {"corners": (0.05, 0), "centers": (0.05, 0),
+                "decision_margin": (0.25, 0), "R": (4.4e-3, 0),
+                "R_avg": (4.4e-3, 0), "t": (1e-4, 0), "anchor_t": (1e-4, 0),
+                "P_depth": (1e-4, 0), "anchor_P_depth": (1e-4, 0),
+                "err_px": (2e-3, 0), "weights": (0, 0.02),
+                "pointcloud": (1e-9, 1e-6)}
+# a kernel of B1-B3 as its device function's name shows in a trace
+KERNEL_NAMES = {"ccl": "ccl_band", "patch_extract": "window_copy",
+                "pointcloud": "pointcloud"}
+QUEUED = 10                    # the bench's queued calls per host read
+ENTRY_OUT = ("ids", "corners", "R_avg", "anchor_P_depth", "pointcloud")
+
+
+def named_leaves(x, name="out"):
+    """[(name, tensor)] of every tensor of a NamedTuple tree."""
+    if torch.is_tensor(x):
+        return [(name, x)]
+    return [leaf for f, v in zip(x._fields, x)
+            for leaf in named_leaves(v, f)]
+
+
+def replay_vs_eager(got, want, what):
+    """A compiled step's outputs against the eager step's, both
+    [(name, tensor)]: integers and booleans equal, floats bit-equal (NaN
+    equal to NaN) or, naming the output, within COMPILED_TOL. Returns
+    {output: max abs difference} of the floats that differ (empty when
+    every output is bit-equal)."""
+    differ, fails = {}, []
+    for (name, a), (_, b) in zip(got, want, strict=True):
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fails.append(f"{name}: {tuple(a.shape)} {a.dtype} vs "
+                         f"{tuple(b.shape)} {b.dtype}")
+        elif not a.is_floating_point():
+            if not torch.equal(a, b):
+                fails.append(f"{name}: integers differ")
+        elif not torch.equal(torch.nan_to_num(a, 7.0),
+                             torch.nan_to_num(b, 7.0)):
+            diff = (a - b).abs().nan_to_num(float("inf"))
+            differ[name] = float(diff.max())
+            atol, rtol = COMPILED_TOL.get(name, (0, 0))
+            if not bool((diff <= atol + rtol * b.abs()).all()):
+                fails.append(f"{name}: {differ[name]} over ({atol}, {rtol})")
+    if fails:
+        raise AssertionError(f"{what}, compiled vs eager: {fails}")
+    return differ
+
+
+def in_turns(fns, reps):
+    """Host-clock ms of synchronized calls of each fn, the fns called in
+    turn `reps` times: {name: [ms, ...]}."""
+    out = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            out[k] += host_ms(fn, 1)
+    return out
+
+
+def queued_fps(fn, frames):
+    """Frames/s of QUEUED queued calls of fn ended by one host read (the
+    bench's loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(QUEUED):
+        out = fn()
+    out.pose.anchor_P_depth.cpu()
+    return frames * QUEUED / (time.perf_counter() - t0)
+
+
+def compiled_pipeline(name, dev, gpu_line, rgbs, depths, K, cfg, dist=None):
+    """pipeline.process_frames_jit against process_frames at batch 16: the
+    capture's seconds and memory, one replay counted under sync-error
+    mode (B1-B3 once each), outputs against the eager step's, one replay
+    profiled (each kernel seen by name), eager and compiled times."""
+    from repas_tpu_torch import pipeline
+    from repas_tpu_torch.kernels import _build
+
+    step = pipeline.process_frames_jit
+
+    def eager():
+        return pipeline.process_frames(rgbs, depths, K, cfg, dist=dist)
+
+    def compiled():
+        return step(rgbs, depths, K, cfg, dist=dist)
+
+    want = eager()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    graphs0 = len(step.graphs)
+    _build.reset_launches()
+    t = time.perf_counter()
+    compiled()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    first = {k: _build.launches[k] for k in PIPELINE_KEYS}
+    reserved1 = torch.cuda.memory_reserved(dev)
+    if len(step.graphs) != graphs0 + 1:
+        raise AssertionError(f"{name}: {len(step.graphs) - graphs0} graphs "
+                             "captured, expected 1")
+    got, counts = counted(compiled, f"{name} replay", sync_error=True)
+    per_replay = {k: counts[k] for k in PIPELINE_KEYS}
+    if per_replay != {k: 1 for k in PIPELINE_KEYS}:
+        raise AssertionError(f"{name}: one replay counted {per_replay}")
+    differ = replay_vs_eager(named_leaves(got), named_leaves(want), name)
+    prof = {"eager": device_profile(eager, top=10),
+            "compiled": device_profile(compiled, top=10)}
+    names = {e.name for e in profiled_kernels(compiled)}
+    seen = {k: sorted({n[:60] for n in names if v in n})
+            for k, v in KERNEL_NAMES.items()}
+    if not all(seen.values()):
+        raise AssertionError(f"{name}: the profiled replay shows no kernel "
+                             f"of {[k for k, v in seen.items() if not v]}")
+    entry = step.graphs[step.key(rgbs, depths, K, cfg, dist=dist)]
+    clone_ms = cuda_ms(lambda: [t.clone() for t in entry.static_out],
+                       iters=STEPS, warmup=1, queued=True)
+    ms = in_turns({"eager": eager, "compiled": compiled}, STEPS)
+    ev = {"eager": cuda_ms(eager, iters=STEPS, warmup=1),
+          "compiled": cuda_ms(compiled, iters=STEPS, warmup=1)}
+    fps = {"eager": queued_fps(eager, BATCH),
+           "compiled": queued_fps(compiled, BATCH)}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log({"phase": name, "batch": BATCH, "capture_s": capture_s,
+         "first_call_launches": first, "replay_launches": per_replay,
+         "floats_not_bit_equal": differ, "device_profile": prof,
+         "kernels_seen": seen, "step_ms_median": med, "step_ms_all": ms,
+         "step_ms_cuda_events": ev,
+         "frames_per_s_synced": {k: BATCH * 1e3 / v for k, v in med.items()},
+         "frames_per_s_queued": fps, "output_clone_device_ms": clone_ms,
+         "reserved_bytes_before_capture": reserved0,
+         "reserved_bytes_after_capture": reserved1,
+         "graph_reserved_bytes": reserved1 - reserved0, "gpu": gpu_line})
+    return {"step_ms": med, "cuda_events_ms": ev, "queued_fps": fps,
+            "graph_reserved_bytes": reserved1 - reserved0}
+
+
+def compiled_entry(dev, gpu_line):
+    """entry()'s batch-1 720p process_frame compiled with jit against the
+    plain step: bit-equal, B1-B3 once per replay under sync-error mode,
+    ms each."""
+    from repas_tpu_torch import graft_entry
+    from repas_tpu_torch.core.jit import jit
+
+    fn, args = graft_entry.entry()
+    cfn = jit(fn)
+    want = fn(*args)
+    cfn(*args)                                   # capture
+    got, counts = counted(lambda: cfn(*args), "compiled entry()",
+                          sync_error=True)
+    per_replay = {k: counts[k] for k in PIPELINE_KEYS}
+    if per_replay != {k: 1 for k in PIPELINE_KEYS}:
+        raise AssertionError(f"compiled entry(): one replay counted "
+                             f"{per_replay}")
+    differ = replay_vs_eager(list(zip(ENTRY_OUT, got)),
+                             list(zip(ENTRY_OUT, want)), "compiled entry()")
+    ms = in_turns({"eager": lambda: fn(*args),
+                   "compiled": lambda: cfn(*args)}, STEPS)
+    ev = {"eager": cuda_ms(lambda: fn(*args), iters=STEPS, warmup=1),
+          "compiled": cuda_ms(lambda: cfn(*args), iters=STEPS, warmup=1)}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log({"phase": "compiled_entry", "ids": got[0].tolist(),
+         "replay_launches": per_replay, "floats_not_bit_equal": differ,
+         "process_frame_ms_median": med, "process_frame_ms_all": ms,
+         "process_frame_ms_cuda_events": ev, "gpu": gpu_line})
+    return {"ms": med, "cuda_events_ms": ev}
+
+
+def compiled_tracker(dev, gpu_line):
+    """The calibrated_tracking phase's 35-frame stream through two
+    trackers in turn, frame by frame: one with the compiled steps
+    (TagTracker's own) and one with the plain functions in their place.
+    Modes and poses equal, one device read and B1/B2 once per compiled
+    track step, ms per track and register step each."""
+    from repas_tpu_torch.detect.detector import detect_tags
+    from repas_tpu_torch.kernels import _build
+    from repas_tpu_torch.pose import track
+    from repas_tpu_torch.pose.pnp import solve_pnp_ippe_square
+
+    frames, _ = tracker_stream()
+
+    def tracker():
+        return track.TagTracker(ROBUST_K, tag_size=TRACK_TAG, device=dev)
+
+    warm = tracker()                       # captures the steps' graphs
+    for f in frames[:3]:
+        warm.step(f)
+    eager, comp = tracker(), tracker()
+    eager._track, eager._detect, eager._ippe = (
+        track._track_roi, detect_tags, solve_pnp_ippe_square)
+    steps = []
+    for i, f in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = eager.step(f)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        before = dict(_build.launches)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                b = comp.step(f)
+                comp_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if (a.mode, a.ok, a.tag_id) != (b.mode, b.ok, b.tag_id) or not (
+                np.array_equal(a.R, b.R) and np.array_equal(a.t, b.t)
+                and (a.err_px == b.err_px or not np.isfinite(a.err_px))):
+            raise AssertionError(f"tracker step {i}: compiled {b} vs eager "
+                                 f"{a}")
+        steps.append({"mode": b.mode, "eager_ms": eager_ms,
+                      "compiled_ms": comp_ms,
+                      "syncs": len(sync_warnings(caught)),
+                      **{k: _build.launches[k] - before[k]
+                         for k in ("ccl", "patch_extract")}})
+    modes = [s["mode"] for s in steps]
+    if modes != TRACK_MODES:
+        raise AssertionError(f"compiled tracker modes {modes}")
+    tracked = [s for s in steps if s["mode"] == "track"]
+    if any(s["ccl"] != 1 or s["patch_extract"] != 1 or s["syncs"] != 1
+           for s in tracked) or max(s["syncs"] for s in steps) > 2:
+        raise AssertionError(
+            "compiled track steps (B1, B2, syncs): "
+            f"{[(s['ccl'], s['patch_extract'], s['syncs']) for s in steps]}")
+    regs = [s for s in steps if s["mode"] == "register"]
+    med = {f"{m}_{k}": float(np.median([s[f"{k}_ms"] for s in group]))
+           for m, group in (("track", tracked), ("register", regs))
+           for k in ("eager", "compiled")}
+    log({"phase": "compiled_tracker", "frames": len(frames), "modes": modes,
+         "poses_bit_equal": True, "syncs": [s["syncs"] for s in steps],
+         "launches_ccl": [s["ccl"] for s in steps],
+         "launches_patch_extract": [s["patch_extract"] for s in steps],
+         "ms_median": med,
+         "track_ms_all": {k: [s[f"{k}_ms"] for s in tracked]
+                          for k in ("eager", "compiled")},
+         "gpu": gpu_line})
+    return med
+
+
+def compiled_phase(dev, gpu_line):
+    """The captured steps (repas_tpu_torch.core.jit) against the eager
+    ones: the batch-16 pipeline on the bench frame and with the lens's
+    coefficients, entry()'s batch-1 frame, the tracker's stream. Frees
+    the pipeline's graphs after."""
+    from repas_tpu_torch import pipeline
+    from repas_tpu_torch.core.config import PipelineConfig, PnPConfig
+
+    t0 = time.perf_counter()
+    rgbs_np, depths_np, K_np = bench_frames(BATCH)
+    pipe = compiled_pipeline(
+        "compiled_pipeline", dev, gpu_line, torch.from_numpy(rgbs_np).to(dev),
+        torch.from_numpy(depths_np).to(dev), torch.from_numpy(K_np).to(dev),
+        PipelineConfig())
+    rgbs_np, depths_np, _, _ = distorted_frames(BATCH)
+    dist = compiled_pipeline(
+        "compiled_distorted_pipeline", dev, gpu_line,
+        torch.from_numpy(rgbs_np).to(dev), torch.from_numpy(depths_np).to(dev),
+        torch.from_numpy(DIST_K).to(dev),
+        PipelineConfig(pnp=PnPConfig(tag_size_m=DIST_TAG)),
+        dist=torch.from_numpy(DIST).to(dev))
+    pipeline.process_frames_jit.clear()
+    torch.cuda.empty_cache()
+    entry = compiled_entry(dev, gpu_line)
+    tracker = compiled_tracker(dev, gpu_line)
+    log({"phase": "compiled", "pipeline": pipe, "distorted_pipeline": dist,
+         "entry": entry, "tracker_ms": tracker,
+         "phase_s": time.perf_counter() - t0, "gpu": gpu_line})
+
+
 # --- bench: the port's headline benchmark (repas_tpu_torch.bench) ---
 # the bench's registration extra runs only with 240 s of its budget left
 # after the headline, the CPU probe and the ladder (bench.py's gate)
@@ -3167,14 +3473,16 @@ def bench_phase(dev, gpu_line):
     counted, then ``python -m repas_tpu_torch.bench`` once. Returns the
     phase's launches."""
     from repas_tpu_torch import bench
+    from repas_tpu_torch.core.jit import WARMUP
 
     t0 = time.perf_counter()
-    orig = bench.process_frames
+    orig = bench.process_frames_jit
+    graphs0 = len(orig.graphs)
     calls = []
 
     def sync_free(*args, **kwargs):
         calls.append(None)
-        if len(calls) == 1:     # the warm call copies the constants
+        if len(calls) == 1:     # the warm call captures the step's graph
             return orig(*args, **kwargs)
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -3182,18 +3490,19 @@ def bench_phase(dev, gpu_line):
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    bench.process_frames = sync_free
+    bench.process_frames_jit = sync_free
     try:
         fps, pipe_counts = counted(
             lambda: bench._time_pipeline(BATCH, bench.ITERS, device=dev),
             "the bench's headline loop")
     finally:
-        bench.process_frames = orig
-    low = {k: pipe_counts[k] for k in PIPELINE_KEYS
-           if pipe_counts[k] != bench.ITERS + 1}
+        bench.process_frames_jit = orig
+    # one launch per replay, and the warm-up's before a capture
+    want = bench.ITERS + 1 + WARMUP * (len(orig.graphs) - graphs0)
+    low = {k: pipe_counts[k] for k in PIPELINE_KEYS if pipe_counts[k] != want}
     if low:
         raise AssertionError(f"the headline loop's {bench.ITERS + 1} calls "
-                             f"launched {low}")
+                             f"launched {low}, expected {want}")
     (robust_fps, n_found), ladder_counts = counted(
         lambda: bench._time_robust_ladder(dev), "the bench's ladder",
         need=("ccl", "patch_extract", "ccl_tiled"))
@@ -3201,6 +3510,7 @@ def bench_phase(dev, gpu_line):
         raise AssertionError(f"the bench's ladder found {n_found} valid "
                              f"best slots, expected {ROBUST_BATCH - 1}")
     log({"phase": "bench_in_process", "headline_fps": fps,
+         "headline_step": "pipeline.process_frames_jit (CUDA graph)",
          "launches_headline": pipe_counts, "robust_synth_fps": robust_fps,
          "robust_tags_found": n_found, "launches_ladder": ladder_counts,
          "gpu": gpu_line})
@@ -3345,6 +3655,7 @@ def main(argv=None) -> int:
         tools_records, tools_counts = tools_phase(dev, gpu_line)
         records += tools_records
         graft_counts = graft_entry_phase(dev, gpu_line)
+        compiled_phase(dev, gpu_line)
         bench_counts = bench_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact"}

@@ -6,12 +6,14 @@ line first (flushed, so an overrun in the extras cannot lose it), then,
 once the extras have run inside the wall-clock budget
 (``REPAS_BENCH_BUDGET_S``, default 900 s), a final superset line:
 
-  metric, value, unit   frames/s of ``pipeline.process_frames`` at 720p,
+  metric, value, unit   frames/s of the compiled step
+                        ``pipeline.process_frames_jit`` (a CUDA graph on
+                        the card, ``process_frames`` on the CPU) at 720p,
                         batch 16, default config, on the bench frame:
-                        one warm call (which builds the kernels and is
-                        gated: tag 9 best in every frame, anchor z within
-                        5 mm of 0.45 m), then 10 calls queued and one
-                        draining host read
+                        one warm call (which builds the kernels, captures
+                        the graph and is gated: tag 9 best in every
+                        frame, anchor z within 5 mm of 0.45 m), then 10
+                        calls queued and one draining host read
   vs_baseline           value / cpu_fps
   cpu_fps               the same loop on this host's CPU (batch 2, at
                         least 10 s), in a subprocess
@@ -63,7 +65,7 @@ from repas_tpu_torch.core.device import host_data_device
 from repas_tpu_torch.core.transforms import rodrigues
 from repas_tpu_torch.detect.render import example_frame, render_tag_in_scene
 from repas_tpu_torch.detect.robust import detect_tags_robust_staged
-from repas_tpu_torch.pipeline import process_frames
+from repas_tpu_torch.pipeline import process_frames_jit
 from repas_tpu_torch.pose.pnp import solve_pnp_best_order
 
 BATCH = 16
@@ -116,7 +118,8 @@ def _gate(out):
 
 
 def _time_pipeline(batch, iters, min_s=0.0, device=None):
-    """Frames/s of process_frames on `batch` bench frames uploaded once to
+    """Frames/s of the compiled process_frames (process_frames_jit) on
+    `batch` bench frames uploaded once to
     `device` (default CUDA): a gated warm call, then rounds of `iters`
     queued calls, each round ended by one host read, until `min_s`
     seconds have passed."""
@@ -133,13 +136,13 @@ def _time_pipeline(batch, iters, min_s=0.0, device=None):
         o.detections.ids.cpu()
 
     with torch.inference_mode():
-        out = process_frames(r, d, K, cfg)      # builds the kernels
+        out = process_frames_jit(r, d, K, cfg)  # builds and captures
         _gate(out)
         t0 = time.perf_counter()
         n = 0
         while True:
             for _ in range(iters):
-                out = process_frames(r, d, K, cfg)
+                out = process_frames_jit(r, d, K, cfg)
             sync(out)
             n += iters
             if time.perf_counter() - t0 >= min_s:

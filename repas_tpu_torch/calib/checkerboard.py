@@ -290,7 +290,9 @@ def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
     """Forward-mode Jacobian (M,P) of fn (P,) -> (M,) at p: the P basis
     tangents ride in one leading batch dimension."""
     P = p.shape[0]
-    with fwAD.dual_level():
+    # torch.inference_mode() turns forward AD off; the duals are made
+    # outside it
+    with torch.inference_mode(False), fwAD.dual_level():
         dual = fwAD.make_dual(p.expand(P, P).contiguous(),
                               torch.eye(P, dtype=p.dtype, device=p.device))
         J = fwAD.unpack_dual(fn(dual)).tangent            # (P,M)

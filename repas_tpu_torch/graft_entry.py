@@ -15,7 +15,9 @@ without a card they raise). The JAX module re-executes itself in a
 subprocess to force its CPU platform; the port runs in process, and on
 one card its mesh names ``cuda:0`` n times, one stream per shard. The
 example frame is ``detect.render.example_frame``, the port's copy of
-``__graft_entry__._example_frame``.
+``__graft_entry__._example_frame``. ``entry()`` returns the plain step;
+run as a script, the step is compiled first (``core.jit``, a CUDA graph
+on the card), as the JAX script jits it.
 
     python -m repas_tpu_torch.graft_entry
 """
@@ -25,6 +27,7 @@ import torch
 
 from repas_tpu_torch.core.config import DetectorConfig, PipelineConfig
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.detect.render import example_frame
 from repas_tpu_torch.parallel.mesh import (batch_stats_psum, frames_mesh,
                                            fuse_views_allgather, shard_batch,
@@ -101,6 +104,6 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
 
 if __name__ == "__main__":
     fn, args = entry()
-    out = fn(*args)
+    out = jit(fn)(*args)
     print("[entry] ids:", out[0].cpu().numpy())
     dryrun_multichip(8)

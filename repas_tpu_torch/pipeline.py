@@ -11,6 +11,14 @@ capacity with masked slots, and nothing in ``process_frames`` waits for
 the device or shapes a tensor by data, so the step is static-shaped.
 RGB is packed once to one int32 word per pixel; grayscale and the point
 cloud both read the packed form.
+
+``process_frames_jit`` is the compiled step (``core/jit.py``), the
+counterpart of the reference's ``jax.jit`` on ``process_frame`` vmapped
+over the batch: on the card one CUDA graph per frame shape, config,
+``with_pointcloud`` and ``dist``'s None-ness, replayed. It takes ``K``
+and ``dist`` as tensors on the frames' device (a host array inside a
+capture would be a pageable copy). ``process_frames`` itself stays
+eager.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repas_tpu_torch.core.config import PipelineConfig
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.detect.detector import Detections, detect_tags
 from repas_tpu_torch.kernels.image import gray_from_u32, pack_rgb_u32
 from repas_tpu_torch.kernels.pointcloud import (depth_to_meters,
@@ -74,6 +83,10 @@ def process_frames(rgbs: torch.Tensor, depths_u16: torch.Tensor, K,
         pc = torch.zeros((rgbs.shape[0], 6, 0), dtype=torch.float32,
                          device=rgbs.device)
     return FrameResult(detections=det, pose=pose, pointcloud=pc)
+
+
+process_frames_jit = jit(process_frames,
+                         static_argnames=("config", "with_pointcloud"))
 
 
 def process_frame(rgb: torch.Tensor, depth_u16: torch.Tensor, K,

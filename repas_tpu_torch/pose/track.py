@@ -15,8 +15,16 @@ Port of ``repas_tpu/pose/track.py`` (``TrackerConfig``, ``TrackResult``,
 Each step waits for the device once: a register step reads the chosen
 slot, id, pose and error in one transfer, a track step reads found,
 error, pose and the held prior's rotation in one transfer and keeps a
-host copy of t for the next ROI. Host frames are copied to the device
-without waiting for it.
+host copy of t for the next ROI. Host frames, and the ROI's origin and
+tag id, are copied to the device without waiting for it.
+
+``TagTracker`` holds its steps compiled (``core/jit.py``, the
+counterpart of the reference's ``jax.jit``), shared by every tracker:
+``_track_roi``, with the ROI origin and tag id as device tensors, and
+the register step's ``detect_tags`` at the frame's shape and
+``solve_pnp_ippe_square``. On the card each is a CUDA graph captured at
+its first call for a shape and configuration and replayed; the host
+read of each step stays outside the graphs.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 
 from repas_tpu_torch.core.config import DetectorConfig
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import rodrigues, rodrigues_inv
 from repas_tpu_torch.detect.detector import detect_tags
 from repas_tpu_torch.pose.pnp import (refine_pnp_gn, solve_pnp_ippe_square,
@@ -62,14 +71,22 @@ def _roi_detector_config(cfg: DetectorConfig, roi: int) -> DetectorConfig:
         max_detections=min(cfg.max_detections, 4))
 
 
-def _track_roi(img, u0: int, v0: int, tag_id: int, rvec_prev, tvec_prev, K,
-               dist, tag_size: float, det_cfg: DetectorConfig, roi: int,
+def _track_roi(img, u0, v0, tag_id, rvec_prev, tvec_prev, K, dist,
+               tag_size: float, det_cfg: DetectorConfig, roi: int,
                min_margin: float, gn_iters: int):
     """Detect inside img[v0:v0+roi, u0:u0+roi] and LM-refine the prior on
-    the best-margin slot of the wanted id (ties: the lower slot). Returns
+    the best-margin slot of the wanted id (ties: the lower slot). u0, v0
+    and tag_id are int32 0-dim tensors on img's device, as the reference
+    traces them; the crop is a gather whose start follows
+    ``jax.lax.dynamic_slice`` (clamped so the window fits). Returns
     (found, rvec, tvec, err, corners); without a match the prior and an
     infinite error."""
-    det = detect_tags(img[None, v0:v0 + roi, u0:u0 + roi], det_cfg)
+    h, w = img.shape[:2]
+    ar = torch.arange(roi, device=img.device)
+    rows = torch.clamp(v0, 0, h - roi) + ar
+    cols = torch.clamp(u0, 0, w - roi) + ar
+    patch = img.index_select(0, rows).index_select(1, cols)
+    det = detect_tags(patch[None], det_cfg)
     match = det.valid[0] & (det.ids[0] == tag_id) & \
         (det.decision_margin[0] >= min_margin)
     # a 0-dim index tensor would be read on the host: index_select
@@ -97,6 +114,14 @@ class TagTracker:
     Frames are (H,W,3) uint8 RGB or (H,W) gray, numpy or tensors. The
     tracker runs on `device`, by default the card (raises without one).
     """
+
+    # the compiled steps, shared by every tracker as jax.jit's cache is:
+    # on the card one CUDA graph per frame shape and configuration
+    _track = jit(_track_roi, static_argnames=(
+        "tag_size", "det_cfg", "roi", "min_margin", "gn_iters"))
+    _detect = jit(detect_tags, static_argnames=("config", "with_candidates"))
+    _ippe = jit(solve_pnp_ippe_square,
+                static_argnames=("tag_size_m", "refine_iters"))
 
     def __init__(self, K, dist=None, tag_size: float = 0.0303,
                  config: TrackerConfig = TrackerConfig(),
@@ -130,7 +155,7 @@ class TagTracker:
             from repas_tpu_torch.detect.robust import detect_tags_robust
             det = detect_tags_robust(img, self.det_cfg)
         else:
-            det = detect_tags(img[None], self.det_cfg)
+            det = self._detect(img[None], self.det_cfg)
             det = type(det)(*(x[0] for x in det))
         valid = det.valid & (det.decision_margin >= self.cfg.min_margin)
         if self.want_id is not None:
@@ -140,9 +165,8 @@ class TagTracker:
         # decoded corners are already in canonical order: IPPE-square
         # directly (the 8-order search would tie across the square's
         # symmetries and could hand the LM a z-flipped prior)
-        R, t, err = solve_pnp_ippe_square(det.corners.index_select(0, i)[0],
-                                          self.K, self.tag_size,
-                                          dist=self.dist)
+        R, t, err = self._ippe(det.corners.index_select(0, i)[0], self.K,
+                               self.tag_size, dist=self.dist)
         rvec = rodrigues_inv(R)
         host = torch.cat([valid.any().to(torch.float32)[None],
                           det.ids.index_select(0, i).to(torch.float32),
@@ -188,10 +212,12 @@ class TagTracker:
         if not (0 <= u0 <= w - roi and 0 <= v0 <= h - roi):
             raise RuntimeError(f"ROI origin ({u0}, {v0}) outside the "
                                f"{h}x{w} frame")
-        found, rvec, tvec, err, _ = _track_roi(
-            img, u0, v0, self._id, self._rvec, self._tvec, self.K, self.dist,
-            self.tag_size, self.roi_cfg, roi, self.cfg.min_margin,
-            self.cfg.gn_iters)
+        origin = torch.tensor([u0, v0, self._id], dtype=torch.int32).to(
+            self.device, non_blocking=True)
+        found, rvec, tvec, err, _ = self._track(
+            img, origin[0], origin[1], origin[2], self._rvec, self._tvec,
+            self.K, self.dist, self.tag_size, self.roi_cfg, roi,
+            self.cfg.min_margin, self.cfg.gn_iters)
         host = torch.cat([found.to(torch.float32)[None], err[None], tvec,
                           rodrigues(rvec).reshape(9),
                           rodrigues(self._rvec).reshape(9)]).cpu().numpy()

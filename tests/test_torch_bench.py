@@ -128,7 +128,7 @@ def test_inference_mode_equals_no_grad(small):
     forward-mode LM gives what it gives under no_grad, before and after
     (the constant caches are shared by both modes)."""
     rgbs, depths, K = (torch.from_numpy(a) for a in bench._frames(2))
-    run = lambda: bench.process_frames(rgbs, depths, K)  # noqa: E731
+    run = lambda: bench.process_frames_jit(rgbs, depths, K)  # noqa: E731
     with torch.no_grad():
         before = run()
     with torch.inference_mode():
