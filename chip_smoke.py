@@ -40,11 +40,14 @@
    within 1 mm and 0.3 degrees of the truth; over 3 mm off without the
    coefficients; frame 0 as on the CPU) and without a cloud (no B3);
    (b) the register-then-track streamer (repas_tpu_torch.pose.track)
-   over 35 noisy 720p frames: B1 and B2 held exactly against their plain
-   versions at the register and track shapes, then the counted stream
-   (modes register, track, lost within the miss budget, register again;
-   3.5 mm from the truth; B1 and B2 once per track step; one device read
-   per step), the stages' times, one robust registration; (c) the tag
+   over 35 noisy 720p frames, its steps compiled (CUDA graphs captured
+   in the warm-up): B1 and B2 held exactly against their plain versions
+   at the register and track shapes, then the counted stream (modes
+   register, track, lost within the miss budget, register again; 3.5 mm
+   from the truth; no launch outside the graphs; one device read per
+   step), the stream again with each step under torch.profiler (B1 and
+   B2 once on the device per track step, twice on the re-registering
+   step), the stages' times, one robust registration; (c) the tag
    bundle's SQPnP on the card against the CPU; (d) depth-to-color
    alignment and NV12/YUYV decoding at 720p against the CPU;
 7. the registration phase (repas_tpu_torch.cloud, no kernel of its own):
@@ -107,8 +110,11 @@
    estimate_pose, validate_pose translation, align_depth,
    capture_aligned --colorize, fetch_intrinsics, pack_replay --colorize,
    fuse_views and view_pointcloud --splat, in-process on the card, each
-   timed after one warm call with B1-B4's launches counted around it;
-   B1, B2 and B3 must launch in track_stream and B4 in track_stream
+   timed after one warm call with B1-B4's launches counted around it
+   (every compiled step captured anew in the warm calls), then each
+   track_stream call once more under torch.profiler, whose trace counts
+   the launches inside the tracker's graphs too; B1, B2 and B3 must
+   launch on the device in track_stream and B4 in track_stream
    --robust or fuse_views, and each is held exactly against its plain
    version at the phase's first inputs. Gates: ids [9, 16] and the
    anchor within 5 mm of the truth on every frame, modes register then
@@ -150,24 +156,27 @@
    pipeline.process_frames_jit at batch 16 on the bench frame and (b)
    on the calibrated phase's scene with the lens's coefficients, each
    against the eager process_frames: the capture's seconds and the
-   memory it reserves, one replay counted under sync-error mode (B1-B3
-   once each), integer outputs equal and floats bit-equal (or, named,
-   within the CPU port's tolerances), one replay under torch.profiler
-   showing B1-B3's device functions by name, the kernels and device ms
+   memory it reserves, one replay under sync-error mode (no launch
+   outside the graph), integer outputs equal and floats bit-equal (or,
+   named, within the CPU port's tolerances), 3 replays under
+   torch.profiler whose trace shows B1-B3's device functions by name
+   exactly once each per replay, the kernels and device ms
    of an eager step and of a replay, the synced step's ms eager and
    compiled in turns (median of 10, host clock and CUDA events), the
    bench's queued loop's frames/s each, the output clones' device ms;
    (c) entry()'s batch-1 720p process_frame under jit against the plain
-   step, bit-equal, B1-B3 once per replay, ms each; (d) the tracker's
-   35-frame stream through the compiled TagTracker and one whose steps
-   are the plain functions, frame by frame in turns: modes and poses
-   equal, one device read and B1/B2 once per compiled track step, ms
-   per track and register step each;
+   step, bit-equal, B1-B3 once per traced replay, ms each; (d) the
+   tracker's 35-frame stream through the compiled TagTracker and one
+   whose steps are the plain functions, frame by frame in turns: modes
+   and poses equal, one device read and no launch outside the graphs
+   per compiled track step, ms per track and register step each;
 14. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
    bench.py): its headline loop in-process (_time_pipeline at batch 16,
    the compiled step: a gated warm call that captures, then 10 queued
-   calls with synchronizing CUDA calls turned into errors, B1-B3
-   launched once per call and once more in the capture's warm-up) and its
+   calls with synchronizing CUDA calls turned into errors; the wrappers
+   count B1-B3 twice, in the capture's warm-up and the capture; the loop
+   again under torch.profiler, each of its 11 calls a replay running
+   B1-B3 once on the device) and its
    ladder (_time_robust_ladder: B1, B2 and B4 launched, 7 valid best
    slots), then ``python -m repas_tpu_torch.bench`` once as a
    subprocess with REPAS_BENCH_BUDGET_S=400: exit 0, the headline line
@@ -179,7 +188,9 @@
    seconds;
 15. prints one JSON line of kernel results (B1-B6, with each kernel's
    launches in the canopy_calib_eval, apps_stream, tools, graft_entry
-   and bench phases; each
+   and bench phases, as the wrappers count them; B1-B3 also with their
+   launches inside replayed graphs in the apps_stream, compiled and
+   bench phases, as the traces count them; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
    "scalar", and on the TMA path its plan: bh, bw, stages, grid,
    smem_bytes), then, last, one JSON line {"ok": true, "device": {...}}.
@@ -409,6 +420,9 @@ def sync_warnings(caught):
 
 
 PIPELINE_KEYS = ("ccl", "patch_extract", "pointcloud")     # B1-B3
+# a kernel of B1-B3 as its device function's name shows in a trace
+KERNEL_NAMES = {"ccl": "ccl_band", "patch_extract": "window_copy",
+                "pointcloud": "pointcloud"}
 
 
 def counted(fn, what, need=PIPELINE_KEYS, sync_error=False):
@@ -1115,10 +1129,13 @@ def tracker_split(tr, frame):
 def tracker_phase(dev, gpu_line, records):
     """The register-then-track streamer on 1280x720 frames: B1 and B2
     held exactly against their plain versions at the register and track
-    shapes, then a counted stream (modes, truth, launches and syncs per
-    step), then one robust registration. Appends the tracker-shape
-    kernel records; adds the track step's launches and times to the main
-    path's B1 and B2 records."""
+    shapes (their inputs seen in the warm-up, which captures the
+    tracker's compiled steps), then a counted stream (modes, truth,
+    syncs per step, no wrapper launch: every step replays), then the
+    stream again with each step traced (B1 and B2 once on the device per
+    track step), then one robust registration. Appends the
+    tracker-shape kernel records; adds the track step's launches and
+    times to the main path's B1 and B2 records."""
     from repas_tpu_torch.kernels import _build, ccl_cuda, patch_extract
     from repas_tpu_torch.pose.track import TagTracker, TrackerConfig
 
@@ -1128,13 +1145,15 @@ def tracker_phase(dev, gpu_line, records):
         return TagTracker(ROBUST_K, tag_size=TRACK_TAG, device=dev, **kw)
 
     # warm-up on the first frames, recording B1's and B2's first input at
-    # the register and the track shapes
+    # the register and the track shapes: the captures' eager warm-ups
+    _build.reset_launches()
     with Capture(ccl_cuda, "connected_components_cuda", True) as c1, \
             Capture(patch_extract, "extract_windows", True) as c2:
         tr = tracker()
         for f in frames[:3]:
             tr.step(f)
         torch.cuda.synchronize()
+    warm_counts = dict(_build.launches)
     def step_of(shape):      # the ROI step runs on 256 px wide inputs
         return "track" if shape[-1] == TRACKER_ROI else "register"
 
@@ -1176,10 +1195,26 @@ def tracker_phase(dev, gpu_line, records):
     if bad or not all(s["ok"] for s, m in zip(steps, modes) if m != "lost"):
         raise AssertionError(f"tracker t errors over 3.5 mm: {bad}")
     track = [s for s in steps if s["mode"] == "track"]
-    if any(s["ccl"] != 1 or s["patch_extract"] != 1 for s in track):
+    if any(s["ccl"] or s["patch_extract"] for s in steps):
         raise AssertionError(
-            "B1/B2 not launched once on every track step: "
-            f"{[(s['ccl'], s['patch_extract']) for s in track]}")
+            "a tracker step launched kernels outside its graphs: "
+            f"{[(s['ccl'], s['patch_extract']) for s in steps]}")
+    # the stream again, each step traced: B1 and B2 on the device
+    tr_traced = tracker()
+    traced0 = TRACED_S[0]
+    traced_steps = []
+    for f in frames:
+        res, wrapped, device, _ = traced(lambda: tr_traced.step(f))
+        traced_steps.append((res.mode, wrapped, device))
+    if [m for m, _, _ in traced_steps] != TRACK_MODES or any(
+            any(w.values()) for _, w, _ in traced_steps):
+        raise AssertionError(f"traced tracker stream: {traced_steps}")
+    per_step = [(d["ccl"], d["patch_extract"]) for _, _, d in traced_steps]
+    if any(p != (1, 1) for p, (m, _, _) in zip(per_step, traced_steps)
+           if m == "track") or not all(p in ((1, 1), (2, 2))
+                                       for p in per_step):
+        raise AssertionError(f"B1/B2 device launches per tracker step "
+                             f"{per_step}")
     # one device read per step: the track step's, the registration's,
     # and both where a failed track step falls back to registration
     if max(s["syncs"] for s in track) > 1 or \
@@ -1192,8 +1227,10 @@ def tracker_phase(dev, gpu_line, records):
     log({"phase": "tracker", "frames": len(frames), "modes": modes,
          "t_err_mm": [s["t_err_mm"] for s in steps],
          "syncs": [s["syncs"] for s in steps],
-         "launches_ccl": [s["ccl"] for s in steps],
-         "launches_patch_extract": [s["patch_extract"] for s in steps],
+         "wrapper_launches_warm_up": warm_counts,
+         "device_launches_ccl": [p[0] for p in per_step],
+         "device_launches_patch_extract": [p[1] for p in per_step],
+         "traced_stream_s": TRACED_S[0] - traced0,
          "register_ms_median": reg_ms, "track_ms_median": track_ms,
          "track_ms_all": [s["ms"] for s in track],
          "tracked_frames_per_s": 1e3 / track_ms, "gpu": gpu_line})
@@ -1201,20 +1238,23 @@ def tracker_phase(dev, gpu_line, records):
     log({"phase": "tracker_split", **tracker_split(tr, frames[-1]),
          "gpu": gpu_line})
 
-    counts = {"ccl": sum(s["ccl"] for s in steps),
-              "patch_extract": sum(s["patch_extract"] for s in steps)}
+    device = {"ccl": sum(p[0] for p in per_step),
+              "patch_extract": sum(p[1] for p in per_step)}
     for rec in new:
-        rec["launches"] = counts["ccl" if rec["name"][:2] == "B1"
-                                 else "patch_extract"]
+        key = "ccl" if rec["name"][:2] == "B1" else "patch_extract"
+        rec["launches"] = warm_counts[key]
+        rec["graph_launches"] = device[key]
     track_b1, track_b2 = (next(r for r in new if r["name"].startswith(k)
                                and "tracker track" in r["name"])
                           for k in ("B1", "B2"))
-    for rec in (track_b1, track_b2):
-        rec["launches_per_track_step"] = 1
+    for rec, i in ((track_b1, 0), (track_b2, 1)):
+        rec["launches_per_track_step"] = max(
+            p[i] for p, (m, _, _) in zip(per_step, traced_steps)
+            if m == "track")
     for rec in records:
         if rec["name"] in ("B1 ccl", "B2 patch_extract"):
             tr_rec = track_b1 if rec["name"][:2] == "B1" else track_b2
-            rec["track_launches_per_step"] = 1
+            rec["track_launches_per_step"] = tr_rec["launches_per_track_step"]
             rec["track_ms"] = tr_rec["ms"]
             rec["track_shape"] = tr_rec["input_shape"]
 
@@ -2152,6 +2192,51 @@ def profiled_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def traced(fn):
+    """fn() under torch.profiler with every launch count set to 0 just
+    before it: (its output, the wrappers' counts read just after, {B1-B3
+    key: that kernel's device launches in the trace}, the device kernels'
+    names). A wrapper counts the launches it makes; a replayed graph's
+    launches show only in the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repas_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace drops device events stamped before its window opened
+        # (seen on the H100: a replay's first 100-340 kernels, now and
+        # then): start fn's work well inside the window
+        time.sleep(TRACE_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    counts = dict(_build.launches)
+    # the raw events: building prof.events()' tree costs seconds a trace
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    device = {k: sum(v in n for n in names) for k, v in KERNEL_NAMES.items()}
+    TRACED_S[0] += time.perf_counter() - t0
+    return out, counts, device, names
+
+
+def replays_traced(fn, what):
+    """REPLAYS calls of a compiled step fn traced: each must be a replay
+    (no wrapper launches) running B1-B3 once each on the device. Returns
+    ({key: device launches}, {key: the kernels' names})."""
+    _, counts, device, names = traced(lambda: [fn() for _ in range(REPLAYS)])
+    if any(counts.values()) or \
+            device != {k: REPLAYS for k in PIPELINE_KEYS}:
+        raise AssertionError(f"{what}: {REPLAYS} replays launched {device} "
+                             f"on the device, wrappers {counts}")
+    seen = {k: sorted({n[:60] for n in names if v in n})
+            for k, v in KERNEL_NAMES.items()}
+    return device, seen
+
+
 def device_profile(fn, top=5):
     """One call of fn under torch.profiler: the number of device kernels,
     their summed device ms, and the `top` kernels by device ms (names
@@ -2702,20 +2787,21 @@ def apps_runs(d, dev):
 
 def apps_stream_clis(d, dev):
     """Each CLI call warm, then timed with the launch counts reset just
-    before it. Returns (ms, launches per call, the B1-B4 inputs first
-    seen in the warm calls)."""
+    before it, then each track_stream call once more traced. Returns (ms,
+    wrapper launches per call, the traced calls' device launches and
+    their launches inside graphs (device less wrapper), the B1-B4 inputs
+    first seen in the warm calls)."""
     from repas_tpu_torch import pipeline
+    from repas_tpu_torch.core.jit import clear_caches
     from repas_tpu_torch.kernels import (_build, ccl_cuda, ccl_tiled,
                                          patch_extract)
 
-    from repas_tpu_torch.pose.track import TagTracker
-
     runs, devarg = apps_runs(d, dev)
-    ms, launches = {}, {}
-    # the tracker's steps are captured anew in the warm calls, whose eager
-    # warm-up shows B1's and B2's inputs at the tracker's shapes
-    for step in (TagTracker._track, TagTracker._detect, TagTracker._ippe):
-        step.clear()
+    ms, launches, device, graph = {}, {}, {}, {}
+    # the compiled steps are captured anew in the warm calls, as in a new
+    # process, whose eager warm-ups show B1's and B2's inputs at the
+    # tracker's shapes
+    clear_caches()
     with Capture(ccl_cuda, "connected_components_cuda", True) as c1, \
             Capture(patch_extract, "extract_windows") as c2, \
             Capture(pipeline, "fused_pointcloud") as c3, \
@@ -2731,7 +2817,15 @@ def apps_stream_clis(d, dev):
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(_build.launches)
-    return ms, launches, (c1.calls, c2.args, c3.args, c4.args)
+    # the tracker's steps replay graphs: their kernels show in a trace
+    for name, app, argv in runs:
+        if name.startswith("track_stream"):
+            _, wrapped, device[name], _ = traced(
+                lambda: app.main(argv + devarg))
+            graph[name] = {k: device[name][k] - wrapped[k]
+                           for k in PIPELINE_KEYS}
+    return ms, launches, device, graph, (c1.calls, c2.args, c3.args,
+                                         c4.args)
 
 
 def apps_stream_checks(d):
@@ -2933,7 +3027,8 @@ def apps_stream_phase(dev, gpu_line):
     scene's truth, B1-B4 held against their plain twins at the phase's
     inputs, the renderer at full width and the mesh over a repeated
     device. Returns (the phase's kernel records, the phase's B1-B4
-    launches)."""
+    wrapper launches, B1-B3's launches inside graphs in the traced
+    track_stream calls)."""
     import pathlib
     import tempfile
 
@@ -2942,13 +3037,18 @@ def apps_stream_phase(dev, gpu_line):
         d = pathlib.Path(tmp)
         apps_scene(d)
         scene_s = time.perf_counter() - t0
-        ms, launches, (b1, b2, b3, b4) = apps_stream_clis(d, dev)
+        traced0 = TRACED_S[0]
+        ms, launches, device, per_cli, (b1, b2, b3, b4) = \
+            apps_stream_clis(d, dev)
+        traced_s = TRACED_S[0] - traced0
         totals = {k: sum(v[k] for v in launches.values())
                   for k in launches["track_stream"]}
-        low = [k for k in ("ccl", "patch_extract", "pointcloud")
-               if launches["track_stream"][k] < 1]
+        graph = {k: sum(v[k] for v in per_cli.values())
+                 for k in PIPELINE_KEYS}
+        low = [k for k in PIPELINE_KEYS if device["track_stream"][k] < 1]
         if low:
-            raise AssertionError(f"track_stream did not launch {low}")
+            raise AssertionError(f"track_stream did not launch {low} on the "
+                                 f"device ({device['track_stream']})")
         if (launches["track_stream_robust"]["ccl_tiled"] < 1
                 and launches["fuse_views"]["ccl_tiled"] < 1):
             raise AssertionError("B4 not launched by track_stream --robust "
@@ -2975,6 +3075,8 @@ def apps_stream_phase(dev, gpu_line):
 
         checks, fails, fused = apps_stream_checks(d)
         log({"phase": "apps_stream", "app_ms": ms, "launches": launches,
+             "traced_device_launches": device, "graph_launches": graph,
+             "traced_s": traced_s,
              "scene_s": scene_s, **checks, "gpu": gpu_line})
         if fails:
             raise AssertionError(f"apps_stream: {fails}")
@@ -2985,7 +3087,7 @@ def apps_stream_phase(dev, gpu_line):
     phase_s = time.perf_counter() - t0
     log({"phase": "apps_stream_timing", "phase_s": phase_s,
          "kernel_launches": totals, "gpu": gpu_line})
-    return records, totals
+    return records, totals, graph
 
 
 # --- tools: the measurement tools (repas_tpu_torch.tools) and B5/B6 ------
@@ -3196,9 +3298,9 @@ COMPILED_TOL = {"corners": (0.05, 0), "centers": (0.05, 0),
                 "P_depth": (1e-4, 0), "anchor_P_depth": (1e-4, 0),
                 "err_px": (2e-3, 0), "weights": (0, 0.02),
                 "pointcloud": (1e-9, 1e-6)}
-# a kernel of B1-B3 as its device function's name shows in a trace
-KERNEL_NAMES = {"ccl": "ccl_band", "patch_extract": "window_copy",
-                "pointcloud": "pointcloud"}
+REPLAYS = 3                    # traced replays of each compiled step
+TRACE_MARGIN_S = 0.02          # host sleep at each end of a traced window
+TRACED_S = [0.0]               # seconds spent in traced() so far
 QUEUED = 10                    # the bench's queued calls per host read
 ENTRY_OUT = ("ids", "corners", "R_avg", "anchor_P_depth", "pointcloud")
 
@@ -3261,9 +3363,10 @@ def queued_fps(fn, frames):
 
 def compiled_pipeline(name, dev, gpu_line, rgbs, depths, K, cfg, dist=None):
     """pipeline.process_frames_jit against process_frames at batch 16: the
-    capture's seconds and memory, one replay counted under sync-error
-    mode (B1-B3 once each), outputs against the eager step's, one replay
-    profiled (each kernel seen by name), eager and compiled times."""
+    capture's seconds and memory, one replay under sync-error mode (no
+    wrapper launch), outputs against the eager step's, REPLAYS replays
+    traced (B1-B3 once each per replay on the device, seen by name),
+    eager and compiled times."""
     from repas_tpu_torch import pipeline
     from repas_tpu_torch.kernels import _build
 
@@ -3290,19 +3393,15 @@ def compiled_pipeline(name, dev, gpu_line, rgbs, depths, K, cfg, dist=None):
     if len(step.graphs) != graphs0 + 1:
         raise AssertionError(f"{name}: {len(step.graphs) - graphs0} graphs "
                              "captured, expected 1")
-    got, counts = counted(compiled, f"{name} replay", sync_error=True)
-    per_replay = {k: counts[k] for k in PIPELINE_KEYS}
-    if per_replay != {k: 1 for k in PIPELINE_KEYS}:
-        raise AssertionError(f"{name}: one replay counted {per_replay}")
+    got, counts = counted(compiled, f"{name} replay", need=(),
+                          sync_error=True)
+    if any(counts.values()):
+        raise AssertionError(f"{name}: a replay launched {counts} outside "
+                             "its graph")
     differ = replay_vs_eager(named_leaves(got), named_leaves(want), name)
+    replays, seen = replays_traced(compiled, name)
     prof = {"eager": device_profile(eager, top=10),
             "compiled": device_profile(compiled, top=10)}
-    names = {e.name for e in profiled_kernels(compiled)}
-    seen = {k: sorted({n[:60] for n in names if v in n})
-            for k, v in KERNEL_NAMES.items()}
-    if not all(seen.values()):
-        raise AssertionError(f"{name}: the profiled replay shows no kernel "
-                             f"of {[k for k, v in seen.items() if not v]}")
     entry = step.graphs[step.key(rgbs, depths, K, cfg, dist=dist)]
     clone_ms = cuda_ms(lambda: [t.clone() for t in entry.static_out],
                        iters=STEPS, warmup=1, queued=True)
@@ -3313,7 +3412,8 @@ def compiled_pipeline(name, dev, gpu_line, rgbs, depths, K, cfg, dist=None):
            "compiled": queued_fps(compiled, BATCH)}
     med = {k: float(np.median(v)) for k, v in ms.items()}
     log({"phase": name, "batch": BATCH, "capture_s": capture_s,
-         "first_call_launches": first, "replay_launches": per_replay,
+         "first_call_launches": first,
+         "traced_replays": REPLAYS, "replay_device_launches": replays,
          "floats_not_bit_equal": differ, "device_profile": prof,
          "kernels_seen": seen, "step_ms_median": med, "step_ms_all": ms,
          "step_ms_cuda_events": ev,
@@ -3323,13 +3423,14 @@ def compiled_pipeline(name, dev, gpu_line, rgbs, depths, K, cfg, dist=None):
          "reserved_bytes_after_capture": reserved1,
          "graph_reserved_bytes": reserved1 - reserved0, "gpu": gpu_line})
     return {"step_ms": med, "cuda_events_ms": ev, "queued_fps": fps,
-            "graph_reserved_bytes": reserved1 - reserved0}
+            "graph_reserved_bytes": reserved1 - reserved0,
+            "replay_device_launches": replays}
 
 
 def compiled_entry(dev, gpu_line):
     """entry()'s batch-1 720p process_frame compiled with jit against the
-    plain step: bit-equal, B1-B3 once per replay under sync-error mode,
-    ms each."""
+    plain step: bit-equal, a replay under sync-error mode without wrapper
+    launches, B1-B3 once per traced replay on the device, ms each."""
     from repas_tpu_torch import graft_entry
     from repas_tpu_torch.core.jit import jit
 
@@ -3337,12 +3438,12 @@ def compiled_entry(dev, gpu_line):
     cfn = jit(fn)
     want = fn(*args)
     cfn(*args)                                   # capture
-    got, counts = counted(lambda: cfn(*args), "compiled entry()",
+    got, counts = counted(lambda: cfn(*args), "compiled entry()", need=(),
                           sync_error=True)
-    per_replay = {k: counts[k] for k in PIPELINE_KEYS}
-    if per_replay != {k: 1 for k in PIPELINE_KEYS}:
-        raise AssertionError(f"compiled entry(): one replay counted "
-                             f"{per_replay}")
+    if any(counts.values()):
+        raise AssertionError(f"compiled entry(): a replay launched {counts} "
+                             "outside its graph")
+    replays, _ = replays_traced(lambda: cfn(*args), "compiled entry()")
     differ = replay_vs_eager(list(zip(ENTRY_OUT, got)),
                              list(zip(ENTRY_OUT, want)), "compiled entry()")
     ms = in_turns({"eager": lambda: fn(*args),
@@ -3351,18 +3452,21 @@ def compiled_entry(dev, gpu_line):
           "compiled": cuda_ms(lambda: cfn(*args), iters=STEPS, warmup=1)}
     med = {k: float(np.median(v)) for k, v in ms.items()}
     log({"phase": "compiled_entry", "ids": got[0].tolist(),
-         "replay_launches": per_replay, "floats_not_bit_equal": differ,
+         "traced_replays": REPLAYS, "replay_device_launches": replays,
+         "floats_not_bit_equal": differ,
          "process_frame_ms_median": med, "process_frame_ms_all": ms,
          "process_frame_ms_cuda_events": ev, "gpu": gpu_line})
-    return {"ms": med, "cuda_events_ms": ev}
+    return {"ms": med, "cuda_events_ms": ev,
+            "replay_device_launches": replays}
 
 
 def compiled_tracker(dev, gpu_line):
     """The calibrated_tracking phase's 35-frame stream through two
     trackers in turn, frame by frame: one with the compiled steps
     (TagTracker's own) and one with the plain functions in their place.
-    Modes and poses equal, one device read and B1/B2 once per compiled
-    track step, ms per track and register step each."""
+    Modes and poses equal, one device read per compiled track step and
+    no launch outside the graphs (the tracker phase traces B1/B2 once per
+    track step on the device), ms per track and register step each."""
     from repas_tpu_torch.detect.detector import detect_tags
     from repas_tpu_torch.kernels import _build
     from repas_tpu_torch.pose import track
@@ -3410,10 +3514,11 @@ def compiled_tracker(dev, gpu_line):
     if modes != TRACK_MODES:
         raise AssertionError(f"compiled tracker modes {modes}")
     tracked = [s for s in steps if s["mode"] == "track"]
-    if any(s["ccl"] != 1 or s["patch_extract"] != 1 or s["syncs"] != 1
-           for s in tracked) or max(s["syncs"] for s in steps) > 2:
+    if any(s["ccl"] or s["patch_extract"] for s in steps) or any(
+            s["syncs"] != 1 for s in tracked) or \
+            max(s["syncs"] for s in steps) > 2:
         raise AssertionError(
-            "compiled track steps (B1, B2, syncs): "
+            "compiled tracker steps (wrapper B1, B2, syncs): "
             f"{[(s['ccl'], s['patch_extract'], s['syncs']) for s in steps]}")
     regs = [s for s in steps if s["mode"] == "register"]
     med = {f"{m}_{k}": float(np.median([s[f"{k}_ms"] for s in group]))
@@ -3421,8 +3526,9 @@ def compiled_tracker(dev, gpu_line):
            for k in ("eager", "compiled")}
     log({"phase": "compiled_tracker", "frames": len(frames), "modes": modes,
          "poses_bit_equal": True, "syncs": [s["syncs"] for s in steps],
-         "launches_ccl": [s["ccl"] for s in steps],
-         "launches_patch_extract": [s["patch_extract"] for s in steps],
+         "wrapper_launches_ccl": [s["ccl"] for s in steps],
+         "wrapper_launches_patch_extract": [s["patch_extract"]
+                                            for s in steps],
          "ms_median": med,
          "track_ms_all": {k: [s[f"{k}_ms"] for s in tracked]
                           for k in ("eager", "compiled")},
@@ -3438,7 +3544,7 @@ def compiled_phase(dev, gpu_line):
     from repas_tpu_torch import pipeline
     from repas_tpu_torch.core.config import PipelineConfig, PnPConfig
 
-    t0 = time.perf_counter()
+    t0, traced0 = time.perf_counter(), TRACED_S[0]
     rgbs_np, depths_np, K_np = bench_frames(BATCH)
     pipe = compiled_pipeline(
         "compiled_pipeline", dev, gpu_line, torch.from_numpy(rgbs_np).to(dev),
@@ -3455,9 +3561,14 @@ def compiled_phase(dev, gpu_line):
     torch.cuda.empty_cache()
     entry = compiled_entry(dev, gpu_line)
     tracker = compiled_tracker(dev, gpu_line)
+    replays = {k: sum(x["replay_device_launches"][k]
+                      for x in (pipe, dist, entry)) for k in PIPELINE_KEYS}
     log({"phase": "compiled", "pipeline": pipe, "distorted_pipeline": dist,
          "entry": entry, "tracker_ms": tracker,
+         "replay_device_launches": replays,
+         "traced_s": TRACED_S[0] - traced0,
          "phase_s": time.perf_counter() - t0, "gpu": gpu_line})
+    return replays
 
 
 # --- bench: the port's headline benchmark (repas_tpu_torch.bench) ---
@@ -3468,10 +3579,12 @@ BENCH_TIMEOUT_S = 480
 
 
 def bench_phase(dev, gpu_line):
-    """The bench's headline loop (every process_frames call after the warm
-    one with synchronizing CUDA calls raising) and its ladder in-process,
-    counted, then ``python -m repas_tpu_torch.bench`` once. Returns the
-    phase's launches."""
+    """The bench's headline loop (every process_frames_jit call after the
+    warm one with synchronizing CUDA calls raising) and its ladder
+    in-process, counted, the headline loop again traced (every call a
+    replay running B1-B3 once on the device), then ``python -m
+    repas_tpu_torch.bench`` once. Returns the phase's wrapper launches
+    and the traced loop's device launches."""
     from repas_tpu_torch import bench
     from repas_tpu_torch.core.jit import WARMUP
 
@@ -3497,12 +3610,20 @@ def bench_phase(dev, gpu_line):
             "the bench's headline loop")
     finally:
         bench.process_frames_jit = orig
-    # one launch per replay, and the warm-up's before a capture
-    want = bench.ITERS + 1 + WARMUP * (len(orig.graphs) - graphs0)
+    # the wrappers count a capture's warm-up and the capture; a replay
+    # launches nothing outside its graph
+    want = (WARMUP + 1) * (len(orig.graphs) - graphs0)
     low = {k: pipe_counts[k] for k in PIPELINE_KEYS if pipe_counts[k] != want}
     if low:
         raise AssertionError(f"the headline loop's {bench.ITERS + 1} calls "
                              f"launched {low}, expected {want}")
+    calls, traced0 = bench.ITERS + 1, TRACED_S[0]
+    _, wrapped, replays, _ = traced(
+        lambda: bench._time_pipeline(BATCH, bench.ITERS, device=dev))
+    if any(wrapped.values()) or replays != {k: calls for k in PIPELINE_KEYS}:
+        raise AssertionError(f"the traced headline loop's {calls} calls "
+                             f"launched {replays} on the device, wrappers "
+                             f"{wrapped}")
     (robust_fps, n_found), ladder_counts = counted(
         lambda: bench._time_robust_ladder(dev), "the bench's ladder",
         need=("ccl", "patch_extract", "ccl_tiled"))
@@ -3511,7 +3632,10 @@ def bench_phase(dev, gpu_line):
                              f"best slots, expected {ROBUST_BATCH - 1}")
     log({"phase": "bench_in_process", "headline_fps": fps,
          "headline_step": "pipeline.process_frames_jit (CUDA graph)",
-         "launches_headline": pipe_counts, "robust_synth_fps": robust_fps,
+         "launches_headline": pipe_counts,
+         "traced_headline_device_launches": replays,
+         "traced_s": TRACED_S[0] - traced0,
+         "robust_synth_fps": robust_fps,
          "robust_tags_found": n_found, "launches_ladder": ladder_counts,
          "gpu": gpu_line})
 
@@ -3557,8 +3681,9 @@ def bench_phase(dev, gpu_line):
     log({"phase": "bench", "subprocess_s": secs,
          "phase_s": time.perf_counter() - t0, "host_cpus": os.cpu_count(),
          "host_cpus_usable": len(os.sched_getaffinity(0)),
-         "kernel_launches": totals, "gpu": gpu_line})
-    return totals
+         "kernel_launches": totals, "graph_launches": replays,
+         "gpu": gpu_line})
+    return totals, replays
 
 
 def main(argv=None) -> int:
@@ -3650,13 +3775,14 @@ def main(argv=None) -> int:
         registration_phase(dev, gpu_line)
         records += cad_chain_phase(dev, gpu_line, args.keep)
         counts = canopy_calib_eval_phase(dev, gpu_line)
-        apps_records, apps_counts = apps_stream_phase(dev, gpu_line)
+        apps_records, apps_counts, apps_graph = apps_stream_phase(dev,
+                                                                  gpu_line)
         records += apps_records
         tools_records, tools_counts = tools_phase(dev, gpu_line)
         records += tools_records
         graft_counts = graft_entry_phase(dev, gpu_line)
-        compiled_phase(dev, gpu_line)
-        bench_counts = bench_phase(dev, gpu_line)
+        compiled_graph = compiled_phase(dev, gpu_line)
+        bench_counts, bench_graph = bench_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact"}
     for rec in records:
@@ -3666,6 +3792,11 @@ def main(argv=None) -> int:
         rec["launches_tools"] = tools_counts[key]
         rec["launches_graft_entry"] = graft_counts[key]
         rec["launches_bench"] = bench_counts[key]
+        if key in PIPELINE_KEYS:
+            # launches inside replayed graphs, counted in the traces
+            rec["graph_launches_apps_stream"] = apps_graph[key]
+            rec["graph_launches_compiled"] = compiled_graph[key]
+            rec["graph_launches_bench"] = bench_graph[key]
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -30,22 +30,56 @@ every launch of one call into a ``torch.cuda.CUDAGraph``:
 * a call made while a capture runs (a jitted step inside another's
   capture) runs ``fn`` inline, as a nested ``jax.jit`` inlines;
 * on the CPU ``fn`` runs directly;
-* each replay adds the capture's kernel launches to
-  ``kernels._build.launches``, so a replayed step counts as an eager one.
+* a kernel wrapper counts its launch calls in ``kernels._build.launches``
+  as it always does, so the warm-up and the capture count and a replay
+  adds nothing: a replay's kernels show in a ``torch.profiler`` trace;
+* a graph keeps alive every cached tensor it reads (``pin``: the
+  constants of ``core/consts.py``, the detector's code tables), so a
+  cache's eviction cannot free memory a replay reads. ``clear_caches``
+  drops every graph of every compiled function, as ``jax.clear_caches``
+  does; ``tag_families.set_active_codebook`` calls it, since a captured
+  detector decodes with the table it was captured with;
+* each key holds its graph's private memory pool until ``clear`` or
+  ``clear_caches``: about the eager step's working set, 4.4 GB for the
+  720p batch-16 ``process_frames`` (``chip_smoke.py``'s compiled phase
+  reports it per graph).
 
-Calls are ordered on the caller's current stream.
+Calls are ordered on the caller's current stream. A graph has one set
+of static buffers, so a replay on another stream than the graph's last
+one waits for that replay (and its output clones) to finish first.
 """
 from __future__ import annotations
 
 import functools
 import inspect
 import threading
-from typing import NamedTuple
+import weakref
+from dataclasses import dataclass
 
 import torch
 
 # eager calls before the capture; one fills every lazy cache of the port
 WARMUP = 1
+
+_JITTED = weakref.WeakSet()     # every compiled function, for clear_caches
+_pinning = threading.local()    # .pins: what the running capture reads
+
+
+def pin(x):
+    """Returns x; while a capture runs on this thread, its graph also
+    keeps x alive. Caches whose tensors a step reads pin what they hand
+    out."""
+    pins = getattr(_pinning, "pins", None)
+    if pins is not None:
+        pins.append(x)
+    return x
+
+
+def clear_caches() -> None:
+    """Drops every captured graph of every compiled function and its
+    memory, the counterpart of ``jax.clear_caches()``."""
+    for jitted in list(_JITTED):
+        jitted.clear()
 
 
 class _Leaf:
@@ -88,14 +122,18 @@ def _unflatten(tree, leaves):
     return typ(*vals)          # a NamedTuple
 
 
-class _Graph(NamedTuple):
+@dataclass
+class _Graph:
     """One captured call: its static input and output buffers, the output
-    structure and the kernel launches the capture recorded."""
+    structure, the cached objects it reads (``pin``), and the event and
+    stream of its last replay."""
     graph: torch.cuda.CUDAGraph
     static_in: list
     out_tree: tuple
     static_out: list
-    launches: dict
+    pins: list
+    done: torch.cuda.Event
+    stream: int | None = None
 
 
 class Jitted:
@@ -116,6 +154,7 @@ class Jitted:
         self._streams = {}
         self._lock = threading.Lock()
         functools.update_wrapper(self, fn)
+        _JITTED.add(self)
 
     def _split(self, args, kwargs):
         """(bound arguments, the key, the tensor leaves, the device or
@@ -162,7 +201,7 @@ class Jitted:
             entry = self.graphs.get(key)
             if entry is None:
                 entry = self.graphs[key] = self._capture(bound, leaves, dev)
-            return self._replay(entry, leaves)
+            return self._replay(entry, leaves, dev)
 
     def _call_with(self, bound, tensors):
         """fn on `bound`'s arguments with their tensors replaced, in
@@ -178,8 +217,6 @@ class Jitted:
         return self.fn(*b.args, **b.kwargs)
 
     def _capture(self, bound, leaves, dev) -> _Graph:
-        from repas_tpu_torch.kernels import _build
-
         static_in = [t.detach().clone() for t in leaves]
         stream = self._streams.get(dev)
         if stream is None:
@@ -191,7 +228,7 @@ class Jitted:
                 self._call_with(bound, static_in)
         cur.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        before = dict(_build.launches)
+        pins = _pinning.pins = []
         try:
             with torch.cuda.graph(graph, stream=stream):
                 out = self._call_with(bound, static_in)
@@ -203,27 +240,27 @@ class Jitted:
             raise RuntimeError(f"jit({self.name}): CUDA graph capture "
                                f"failed: {e}") from e
         finally:
-            # a capture records launches; only replays run them
-            launches = {k: _build.launches[k] - before[k] for k in before}
-            _build.launches.update(before)
+            _pinning.pins = None
         static_out = []
         out_tree = _flatten(out, static_out, "output")
-        return _Graph(graph, static_in, out_tree, static_out,
-                      {k: n for k, n in launches.items() if n})
+        return _Graph(graph, static_in, out_tree, static_out, pins,
+                      torch.cuda.Event())
 
-    def _replay(self, entry: _Graph, leaves):
-        from repas_tpu_torch.kernels import _build
-
+    def _replay(self, entry: _Graph, leaves, dev):
+        cur = torch.cuda.current_stream(dev)
         try:
+            if entry.stream not in (None, cur.cuda_stream):
+                # the static buffers are still read by the last replay
+                cur.wait_event(entry.done)
             for buf, t in zip(entry.static_in, leaves):
                 buf.copy_(t)
             entry.graph.replay()
             fresh = [t.clone() for t in entry.static_out]
+            entry.done.record(cur)
+            entry.stream = cur.cuda_stream
         except RuntimeError as e:
             raise RuntimeError(f"jit({self.name}): CUDA graph replay "
                                f"failed: {e}") from e
-        for k, n in entry.launches.items():
-            _build.launches[k] += n
         return _unflatten(entry.out_tree, iter(fresh))
 
     def clear(self) -> None:

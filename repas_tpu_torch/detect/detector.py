@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repas_tpu_torch.core.config import DetectorConfig
 from repas_tpu_torch.core.consts import const
+from repas_tpu_torch.core.jit import pin
 from repas_tpu_torch.core.transforms import homography_from_unit_square
 from repas_tpu_torch.detect import tag_families
 from repas_tpu_torch.kernels.ccl import (connected_components,
@@ -310,7 +311,9 @@ def _solve_spd3(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 def _decode_tables(device: torch.device):
     """The active codebook's bits (N,36) bool (N = 587 for the default
     table) and rotation permutations (4,36), copied to `device` once;
-    ``tag_families.set_active_codebook`` clears this cache."""
+    ``tag_families.set_active_codebook`` clears this cache and every
+    captured graph (``core.jit.clear_caches``); a graph pins the tables it
+    reads."""
     return (torch.as_tensor(tag_families.tag_family_bits(), device=device),
             torch.as_tensor(tag_families.rotation_perms(), dtype=torch.int64,
                             device=device))
@@ -529,7 +532,7 @@ def detect_tags(img: torch.Tensor,
                         q_rel)
     quads = (q_rel + off) * scale + (scale - 1) / 2.0
 
-    table, perms = _decode_tables(dev)
+    table, perms = pin(_decode_tables(dev))
     sc = scale.reshape(n, 1, 1)
     off_n = off.reshape(n, 1, 2)
 

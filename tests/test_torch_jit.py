@@ -3,26 +3,37 @@ steps compiled with it: the pipeline's process_frames_jit and the
 tracker's _track_roi with its origin and tag id as device tensors.
 
 On the CPU a jitted function runs directly, so the CPU tests check the
-cache key, the refusal of non-static Python arguments, and that the
-compiled entry points give the eager results bit for bit (96x128 frames
-with the dry run's detector; the ROI crop at an interior origin and at
-each frame edge against a slice at host ints). No JAX compile.
+cache key, the refusal of non-static Python arguments, that the
+compiled pipeline hands back the function's own result (96x128 frames
+with the dry run's detector), the tensor-origin ROI crop against a
+slice at host ints (an interior origin and each frame edge), that
+swapping the codebook drops every captured graph and that a capture
+pins the constants it reads. No JAX compile.
 
 The ``cuda``-marked tests skip without a card. On one:
 ``python -m pytest -m cuda tests/test_torch_jit.py``. Capture plus
 replay is bit-equal to the eager step (the graph replays the same
-kernels on the same inputs), a replay adds the capture's launch counts,
-two queued replays return distinct tensors, and a host read inside a
-captured function raises.
+kernels on the same inputs), a replay launches B1-B3 once each inside
+its graph and nothing through the wrappers, two queued replays return
+distinct tensors, a swapped codebook reaches the compiled step, two
+trackers stepping on two streams in two threads get what each gets
+alone, and a host read inside a captured function raises.
 """
+import functools
+import threading
+import time
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repas_tpu_torch.core import jit as jit_module  # noqa: E402
 from repas_tpu_torch.core.config import DetectorConfig, PipelineConfig  # noqa
+from repas_tpu_torch.core.consts import const  # noqa: E402
 from repas_tpu_torch.core.jit import jit  # noqa: E402
 from repas_tpu_torch.core.transforms import rodrigues  # noqa: E402
+from repas_tpu_torch.detect import tag_families  # noqa: E402
 from repas_tpu_torch.detect.detector import detect_tags  # noqa: E402
 from repas_tpu_torch.detect.render import (example_frame,  # noqa: E402
                                            render_tag_in_scene)
@@ -32,8 +43,8 @@ from repas_tpu_torch.pipeline import (process_frames,  # noqa: E402
                                       process_frames_jit)
 from repas_tpu_torch.pose.pnp import (refine_pnp_gn,  # noqa: E402
                                       square_object_points)
-from repas_tpu_torch.pose.track import (_roi_detector_config,  # noqa: E402
-                                        _track_roi)
+from repas_tpu_torch.pose.track import (TagTracker,  # noqa: E402
+                                        _roi_detector_config, _track_roi)
 
 CFG = PipelineConfig(detector=DRYRUN_DETECTOR)
 DIST = np.array([-0.05, 0.01, 0.001, -0.0005, 0.002], np.float32)
@@ -144,14 +155,51 @@ def test_static_argnames_must_be_parameters():
 
 @pytest.mark.parametrize("with_dist", [False, True])
 def test_compiled_process_frames_equals_eager_on_the_cpu(with_dist):
+    """On the CPU the compiled step is the function itself: one call with
+    the caller's own tensors, its result object handed back."""
     r, d, K = _frames(2)
     dist = torch.from_numpy(DIST) if with_dist else None
+    calls = []
+
+    @functools.wraps(process_frames)
+    def spy(*args, **kwargs):
+        out = process_frames(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
     with torch.no_grad():
-        want = process_frames(r, d, K, CFG, dist=dist)
-        got = jit(process_frames, static_argnames=STATIC)(r, d, K, CFG,
-                                                          dist=dist)
-    assert int(want.detections.valid.sum()) == 2
-    _assert_equal_trees(got, want)
+        got = jit(spy, static_argnames=STATIC)(r, d, K, CFG, dist=dist)
+    ((args, kwargs, out),) = calls
+    assert got is out
+    assert all(a is b for a, b in zip(args, (r, d, K, CFG), strict=True))
+    assert kwargs["dist"] is dist
+    assert int(got.detections.valid.sum()) == 2
+
+
+def test_set_active_codebook_clears_every_compiled_step(monkeypatch):
+    """The counterpart of jax.clear_caches(): a graph captured with the
+    old family table must not replay under the new one."""
+    monkeypatch.setattr(tag_families, "_ACTIVE_CODES",
+                        tag_families._ACTIVE_CODES)
+    steps = (process_frames_jit, TagTracker._track, TagTracker._detect,
+             jit(lambda x: x))
+    for step in steps:
+        step.graphs["captured"] = None
+    tag_families.set_active_codebook(tag_families.TAG36H11_CODES[5:])
+    assert not any(step.graphs for step in steps)
+
+
+def test_a_capture_pins_the_constants_it_reads():
+    """A captured graph keeps the cached constants it read alive, so an
+    eviction from the constant cache cannot free a replay's memory."""
+    x = object()
+    assert jit_module.pin(x) is x      # outside a capture nothing is kept
+    jit_module._pinning.pins = pins = []
+    try:
+        c = const((1.5, 2.5), torch.float32, "cpu")
+    finally:
+        jit_module._pinning.pins = None
+    assert len(pins) == 1 and pins[0] is c
 
 
 def _host_int_track_roi(img, u0, v0, tag_id, rvec_prev, tvec_prev, K, dist,
@@ -275,21 +323,35 @@ def test_capture_replay_equals_eager_track_roi(dev):
 
 
 @pytest.mark.cuda
-def test_replay_adds_the_captures_launch_counts(dev):
+def test_replay_launches_only_inside_its_graph(dev):
+    """The wrappers count the warm-up's and the capture's launches; a
+    replay adds no count, and the profiler's trace shows B1-B3 once each
+    per replay."""
+    from torch.profiler import ProfilerActivity, profile
+
     r, d, K = _frames(2, dev)
     step = jit(process_frames, static_argnames=STATIC)
+    names = {"ccl": "ccl_band", "patch_extract": "window_copy",
+             "pointcloud": "pointcloud"}
     with torch.no_grad():
-        step(r, d, K, CFG)
-        (entry,) = step.graphs.values()
-        assert entry.launches == {"ccl": 1, "patch_extract": 1,
-                                  "pointcloud": 1}
         before = dict(_build.launches)
-        for _ in range(3):
-            step(r, d, K, CFG)
-    torch.cuda.synchronize()
-    assert {k: _build.launches[k] - before[k] for k in before
-            if _build.launches[k] != before[k]} == {
-        "ccl": 3, "patch_extract": 3, "pointcloud": 3}
+        step(r, d, K, CFG)
+        torch.cuda.synchronize()
+        assert {k: _build.launches[k] - before[k] for k in names} == {
+            k: jit_module.WARMUP + 1 for k in names}
+        before = dict(_build.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)        # the trace drops events before its
+            for _ in range(3):      # window opened: start well inside it
+                step(r, d, K, CFG)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+    assert _build.launches == before
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert {k: sum(v in n for n in kernels) for k, v in names.items()} == {
+        k: 3 for k in names}
 
 
 @pytest.mark.cuda
@@ -312,6 +374,77 @@ def test_queued_replays_return_distinct_tensors(dev):
         assert x.data_ptr() != y.data_ptr()
     _assert_equal_trees(a, want_a)
     _assert_equal_trees(b, want_b)
+
+
+@pytest.mark.cuda
+def test_swapped_codebook_reaches_the_compiled_step(dev, monkeypatch):
+    """A codebook swapped after a capture: the compiled step decodes with
+    the new table, as the eager step does (tag 9 becomes id 4 in the
+    family without its first five codes)."""
+    monkeypatch.setattr(tag_families, "_ACTIVE_CODES",
+                        tag_families._ACTIVE_CODES)
+    r, d, K = _frames(2, dev)
+    with torch.no_grad():
+        before = process_frames_jit(r, d, K, CFG)
+        tag_families.set_active_codebook(tag_families.TAG36H11_CODES[5:])
+        try:
+            assert not process_frames_jit.graphs
+            want = process_frames(r, d, K, CFG)
+            got = process_frames_jit(r, d, K, CFG)
+            again = process_frames_jit(r, d, K, CFG)
+        finally:
+            tag_families.set_active_codebook(tag_families.TAG36H11_CODES)
+    torch.cuda.synchronize()
+    assert before.detections.ids[:, 0].tolist() == [9, 9]
+    assert want.detections.ids[:, 0].tolist() == [4, 4]
+    _assert_equal_trees(got, want)
+    _assert_equal_trees(again, want)
+
+
+def _camera_frames(t0, step, n=6):
+    """n 480x640 RGB frames of tag 5 (60 mm, f = 600) moving by `step`."""
+    K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]], np.float32)
+    R = rodrigues(torch.tensor([0.2, -0.15, 0.05])).numpy()
+    frames = []
+    for i in range(n):
+        t = np.asarray(t0, np.float32) + i * np.asarray(step, np.float32)
+        gray = render_tag_in_scene(5, R, t, K, 0.06, (480, 640),
+                                   supersample=3)
+        frames.append(np.repeat(np.clip(gray, 0, 255).astype(np.uint8)
+                                [..., None], 3, axis=-1))
+    return K, frames
+
+
+@pytest.mark.cuda
+def test_two_trackers_on_two_streams(dev):
+    """The tracker's compiled steps are shared by every tracker, with one
+    set of static buffers a graph: two cameras, each tracked in its own
+    thread on its own CUDA stream, get what each gets alone."""
+    cams = [_camera_frames((0.0, 0.0, 0.5), (0.002, 0.001, 0.0)),
+            _camera_frames((-0.05, 0.03, 0.6), (0.0, -0.002, 0.001))]
+
+    def run(K, frames):
+        tr = TagTracker(K, tag_size=0.06, device=dev)
+        return [tr.step(f) for f in frames]
+
+    alone = [run(K, frames) for K, frames in cams]    # captures the steps
+    assert [r.mode for r in alone[0]] == ["register"] + ["track"] * 5
+    together = [None, None]
+
+    def worker(i):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            together[i] = run(*cams[i])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for a, b in zip(alone, together, strict=True):
+        assert [(r.mode, r.ok, r.tag_id) for r in a] == \
+            [(r.mode, r.ok, r.tag_id) for r in b]
+        for x, y in zip(a, b):
+            assert np.array_equal(x.R, y.R) and np.array_equal(x.t, y.t)
 
 
 @pytest.mark.cuda
