@@ -22,8 +22,10 @@
    reads the counts, checks the results (tag 9 in every frame,
    depth-corrected z within 5 mm of 0.45 m, one frame equal to the
    port's CPU result) and times it;
-5. the robust phase: the staged detection ladder
-   (repas_tpu_torch.detect.robust.detect_tags_robust_staged) and
+5. the robust phase: the eager staged detection ladder
+   (repas_tpu_torch.detect.robust.detect_tags_robust_staged on the plain
+   functions of its compiled steps; the compiled phase holds the
+   compiled ladder against it) and
    best-order PnP on the best slot of each of 8 synthetic 720p frames
    (4 easy, 2 that only the stage-B ROI re-detection decodes, 1
    gamma-darkened, 1 without a tag, which forces stage C and kernel B4).
@@ -47,7 +49,8 @@
    from the truth; no launch outside the graphs; one device read per
    step), the stream again with each step under torch.profiler (B1 and
    B2 once on the device per track step, twice on the re-registering
-   step), the stages' times, one robust registration; (c) the tag
+   step), the stages' times, one robust registration (its compiled
+   pieces captured anew: B4 launched in the capture); (c) the tag
    bundle's SQPnP on the card against the CPU; (d) depth-to-color
    alignment and NV12/YUYV decoding at 720p against the CPU;
 7. the registration phase (repas_tpu_torch.cloud, no kernel of its own):
@@ -93,7 +96,10 @@
    (blur, noise): detection and sub-pixel refinement of every view (all
    found; two views' corners within 1e-3 px of the CPU port's), then
    calibrate_camera (RMS < 0.3 px, fx and fy within 0.5 %, cx and cy
-   within 2 px of the truth); ms per view and the LM's seconds;
+   within 2 px of the truth); ms per view and the LM's seconds; the
+   compiled sub-pixel refinement and LM step against their plain
+   functions (bit-equal, the eager LM's seconds, the compiled LM's
+   synchronizing calls equal at 5 and 100 steps);
    calibrate.main once on PNGs of the views; (c) 150,000 points within
    5 mm of a closed UV sphere of 50,880 triangles through
    point_to_mesh_signed_distances on the card: within the tessellation's
@@ -115,7 +121,8 @@
    track_stream call once more under torch.profiler, whose trace counts
    the launches inside the tracker's graphs too; B1, B2 and B3 must
    launch on the device in track_stream and B4 in track_stream
-   --robust or fuse_views, and each is held exactly against its plain
+   --robust (its trace) or fuse_views, and each is held exactly against
+   its plain
    version at the phase's first inputs. Gates: ids [9, 16] and the
    anchor within 5 mm of the truth on every frame, modes register then
    track, validate_pose's delta within 2 mm of the known step, the two
@@ -147,8 +154,9 @@
    within 5 mm of 0.45 m, ids equal to entry(device="cpu")'s and corners
    within 1e-2 px of them; ms per 720p process_frame at batch 1 (host
    clock, median of 10, and CUDA events); (b) dryrun_multichip(n) for n
-   = 2 and 8 over cuda:0 named n times, its printed line equal to the
-   CPU port's (devices ["cpu"] * n), B1-B3 launched by each, its seconds.
+   = 2 and 8 over cuda:0 named n times (each shard's step compiled and
+   captured in the call), its printed line equal to the CPU port's
+   (devices ["cpu"] * n), B1-B3 launched by each, its seconds.
    tools/canopy_reference_parity.py's port is host-only cv2 code and is
    not run here (the card's machine may have no cv2);
 13. the compiled phase (repas_tpu_torch.core.jit, the port's counterpart
@@ -170,6 +178,18 @@
    whose steps are the plain functions, frame by frame in turns: modes
    and poses equal, one device read and no launch outside the graphs
    per compiled track step, ms per track and register step each;
+   (e) the compiled ladder + pose (stages A, B and C and the bench's
+   pose_batch, each a graph; the waves of B and C conditional nodes)
+   against the eager one on the 8 frames and on a set whose stages B
+   and C run 4 and 2 waves: each stage's waves, the capture's launches,
+   seconds and memory, a replay with synchronizing calls raising and no
+   wave test, outputs equal, B1, B2 and B4 on the device in each of 3
+   traced replays, ms each in turns; detect_tags_robust compiled on one
+   frame (B4 in its replay's trace); (f) sharded_frame_pipeline at 720p,
+   batch 16, over cuda:0 named 2 and 8 times, one graph per shard:
+   outputs equal to the eager sharded step and the unsharded one, a
+   replay without wrapper launches under sync-error mode, B1-B3 n times
+   in a traced call, ms against the unsharded step eager and compiled;
 14. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
    bench.py): its headline loop in-process (_time_pipeline at batch 16,
    the compiled step: a gated warm call that captures, then 10 queued
@@ -881,7 +901,8 @@ def check_b4(mask, iters, name="B4 ccl_tiled"):
 
 
 def robust_phase(dev, gpu_line):
-    """The staged ladder + best-order PnP on the card; returns the kernel
+    """The staged ladder + best-order PnP on the card, eager (main() runs
+    it with the plain functions of the compiled steps); returns the kernel
     records of the ladder's path (B1 and B2 at each of the ladder's input
     shapes, B4 on its first input), launches from the counted ladder
     run."""
@@ -1258,7 +1279,10 @@ def tracker_phase(dev, gpu_line, records):
             rec["track_ms"] = tr_rec["ms"]
             rec["track_shape"] = tr_rec["input_shape"]
 
-    # one registration through the robust ladder (B1, B2 and B4)
+    # one registration through the robust ladder (B1, B2 and B4), its
+    # compiled pieces captured anew, so the wrappers count the capture
+    for m, n in ladder_steps():
+        getattr(m, n).clear()
     _build.reset_launches()
     rtr = tracker(config=TrackerConfig(robust_register=True))
     res = rtr.step(frames[0])
@@ -2410,6 +2434,50 @@ def board_views():
     return poses
 
 
+def calibration_vs_eager(img, objs, corners, result, dev):
+    """The compiled calibration (refine_corners_subpix and the LM's step,
+    each a captured graph) against its plain functions: the sub-pixel
+    corners of one view and (K, dist, rms) bit-equal; the LM's seconds
+    each, and the compiled LM's synchronizing calls at 5 and 100 steps
+    (equal: a replayed step reads nothing on the host)."""
+    from repas_tpu_torch.calib import (calibrate_camera, checkerboard,
+                                       detect_checkerboard_corners,
+                                       refine_corners_subpix)
+
+    c = detect_checkerboard_corners(img, CAL_N, CAL_N)[0]
+    sub = refine_corners_subpix(img, c)
+    if not torch.equal(sub, refine_corners_subpix.fn(img, c)):
+        raise AssertionError("compiled refine_corners_subpix differs from "
+                             "its plain function")
+    with eager_steps((checkerboard, "_lm_step")):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eager = calibrate_camera(objs, corners, (W, H), device=dev)
+        eager_s = time.perf_counter() - t
+    if not (np.array_equal(eager[0], result[0])
+            and np.array_equal(eager[1], result[1])
+            and eager[2] == result[2]):
+        raise AssertionError(f"calibration compiled {result[:3]} vs eager "
+                             f"{eager[:3]}")
+    syncs = {}
+    for iters in (5, 100):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                calibrate_camera(objs, corners, (W, H), iters=iters,
+                                 device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[iters] = len(sync_warnings(caught))
+    if syncs[5] != syncs[100]:
+        raise AssertionError(f"the compiled LM synchronizes per step: "
+                             f"{syncs}")
+    return {"bit_equal": True, "eager_lm_s": eager_s,
+            "lm_graphs": len(checkerboard._lm_step.graphs),
+            "syncs_at_5_and_100_steps": list(syncs.values())}
+
+
 def calibration_part(d, dev, gpu_line):
     """The reference's board in 20 views on the card: detection, sub-pixel
     refinement, calibrate_camera; gates; two views against the CPU; then
@@ -2462,6 +2530,8 @@ def calibration_part(d, dev, gpu_line):
     K, dist, rms, _, _ = calibrate_camera(objs, np.stack(corners), (W, H),
                                           device=dev)
     lm_s = time.perf_counter() - t1
+    compiled = calibration_vs_eager(imgs[0], objs, np.stack(corners),
+                                    (K, dist, rms), dev)
     out = {"phase": "calibration", "views": CAL_VIEWS, "found": found,
            "rms_px": rms, "K": K.tolist(), "dist": dist[:5].tolist(),
            "K_truth": CAL_K.tolist(), "dist_truth": CAL_DIST.tolist(),
@@ -2473,6 +2543,7 @@ def calibration_part(d, dev, gpu_line):
            "corner_vs_cpu_px": cpu_err,
            "view_ms_median": float(np.median(view_ms)), "view_ms": view_ms,
            "view_profile": view_prof, "calibrate_s": lm_s,
+           "compiled_vs_eager": compiled,
            "calibrate_5_steps_profile": device_profile(
                lambda: calibrate_camera(objs, np.stack(corners), (W, H),
                                         iters=5, device=dev)),
@@ -2817,13 +2888,16 @@ def apps_stream_clis(d, dev):
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(_build.launches)
-    # the tracker's steps replay graphs: their kernels show in a trace
+    # the tracker's steps and detect_tags_robust's pieces replay graphs:
+    # their kernels show in a trace
     for name, app, argv in runs:
         if name.startswith("track_stream"):
-            _, wrapped, device[name], _ = traced(
+            _, wrapped, device[name], names = traced(
                 lambda: app.main(argv + devarg))
+            device[name]["ccl_tiled"] = trace_counts(
+                names, LADDER_NAMES)["ccl_tiled"]
             graph[name] = {k: device[name][k] - wrapped[k]
-                           for k in PIPELINE_KEYS}
+                           for k in (*PIPELINE_KEYS, "ccl_tiled")}
     return ms, launches, device, graph, (c1.calls, c2.args, c3.args,
                                          c4.args)
 
@@ -3044,13 +3118,14 @@ def apps_stream_phase(dev, gpu_line):
         totals = {k: sum(v[k] for v in launches.values())
                   for k in launches["track_stream"]}
         graph = {k: sum(v[k] for v in per_cli.values())
-                 for k in PIPELINE_KEYS}
+                 for k in (*PIPELINE_KEYS, "ccl_tiled")}
         low = [k for k in PIPELINE_KEYS if device["track_stream"][k] < 1]
         if low:
             raise AssertionError(f"track_stream did not launch {low} on the "
                                  f"device ({device['track_stream']})")
         if (launches["track_stream_robust"]["ccl_tiled"] < 1
-                and launches["fuse_views"]["ccl_tiled"] < 1):
+                and launches["fuse_views"]["ccl_tiled"] < 1
+                and device["track_stream_robust"]["ccl_tiled"] < 1):
             raise AssertionError("B4 not launched by track_stream --robust "
                                  "nor fuse_views")
         if b2 is None or b3 is None or b4 is None:
@@ -3072,6 +3147,7 @@ def apps_stream_phase(dev, gpu_line):
                 "B4": "ccl_tiled"}
         for rec in records:
             rec["launches"] = totals[keys[rec["name"][:2]]]
+            rec["graph_launches"] = graph.get(keys[rec["name"][:2]], 0)
 
         checks, fails, fused = apps_stream_checks(d)
         log({"phase": "apps_stream", "app_ms": ms, "launches": launches,
@@ -3536,6 +3612,287 @@ def compiled_tracker(dev, gpu_line):
     return med
 
 
+# the ladder's kernels as their device functions' names show in a trace:
+# B1 runs the band CCL in cluster mode at the ladder's stage A and B
+# shapes, B4 in grid mode on stage C's full frames (the lines of
+# check_b1 and check_b4 print each plan)
+LADDER_KEYS = ("ccl", "patch_extract", "ccl_tiled")
+LADDER_NAMES = {"ccl": ("ccl_band", "ClusterScope"),
+                "patch_extract": ("window_copy",),
+                "ccl_tiled": ("ccl_band", "GridScope")}
+# a set on which stage B runs 4 waves (7 frames left by stage A) and
+# stage C 2 waves (the 3 tagless frames): robust_frames() indices
+MULTI_WAVE = [4, 7, 5, 7, 4, 7, 0, 5]
+
+
+@contextlib.contextmanager
+def eager_steps(*steps):
+    """The plain functions (each compiled step's ``.fn``) in place of the
+    compiled steps named by (module, attribute) pairs."""
+    saved = [(m, n, getattr(m, n)) for m, n in steps]
+    for m, n, f in saved:
+        setattr(m, n, f.fn)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def ladder_steps():
+    """(module, attribute) of every compiled step of the ladder, of
+    detect_tags_robust and of the bench's pose."""
+    from repas_tpu_torch import bench
+    from repas_tpu_torch.detect import robust
+
+    return [(robust, n) for n in ("_stage_a", "_stage_b", "_stage_c",
+                                  "_enhance_stack", "_detect_batch",
+                                  "_merge_jit")] + [(bench, "pose_batch")]
+
+
+def trace_counts(names, table):
+    """{key: device functions in `names` whose name holds every part of
+    table[key]}."""
+    return {k: sum(all(p in n for p in v) for n in names)
+            for k, v in table.items()}
+
+
+def stage_waves(frames, cfg):
+    """(stage B's waves, stage C's waves) the eager ladder runs on
+    `frames`: ceil(frames each stage escalates / k)."""
+    from repas_tpu_torch.detect import robust
+
+    k = min(robust._ESC_K, frames.shape[0])
+    det, found, grays, rois, rscores = robust._stage_a.fn(frames, cfg)
+    n_b = int((~found).sum())
+    _, found_b = robust._stage_b.fn(grays, det, found, rois, rscores, cfg)
+    return -(-n_b // k), -(-int((~found_b).sum()) // k)
+
+
+def ladder_leaves(out):
+    det, best, t, err = out
+    return named_leaves(det) + [("best", best), ("t", t), ("err_px", err)]
+
+
+def compiled_ladder_set(name, dev, gpu_line, frames, K, cfg, tag, want_ids):
+    """ladder_and_pose compiled against its eager run on one frame set:
+    waves per stage, the capture (wrapper launches of its warm-up and
+    capture, seconds, graph memory), a replay with synchronizing calls
+    raising and no wave test, outputs equal to eager, REPLAYS replays
+    traced (B1, B2 and B4 on the device in each), eager and compiled ms
+    in turns."""
+    from repas_tpu_torch.detect import robust
+
+    waves = stage_waves(frames, cfg)
+
+    def eager():
+        with eager_steps(*ladder_steps()):
+            return ladder_and_pose(frames, K, cfg, tag)
+
+    def compiled():
+        return ladder_and_pose(frames, K, cfg, tag)
+
+    robust.host_reads["wave_tests"] = 0
+    want = eager()
+    torch.cuda.synchronize()
+    eager_tests = robust.host_reads["wave_tests"]
+    for m, n in ladder_steps():
+        getattr(m, n).clear()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    t = time.perf_counter()
+    _, first = counted(compiled, f"{name} capture", need=LADDER_KEYS)
+    capture_s = time.perf_counter() - t
+    reserved1 = torch.cuda.memory_reserved(dev)
+    robust.host_reads["wave_tests"] = 0
+    got, counts = counted(compiled, f"{name} replay", need=(),
+                          sync_error=True)
+    replay_tests = robust.host_reads["wave_tests"]
+    if any(counts.values()) or replay_tests:
+        raise AssertionError(f"{name}: a replay launched {counts} outside "
+                             f"its graphs, {replay_tests} wave tests")
+    differ = replay_vs_eager(ladder_leaves(got), ladder_leaves(want), name)
+    det, best = got[0], got[1]
+    rows = torch.arange(frames.shape[0], device=dev)
+    ids = torch.where(det.valid[rows, best], det.ids[rows, best], -1)
+    if ids.tolist() != [-1 if i is None else i for i in want_ids]:
+        raise AssertionError(f"{name}: best ids {ids.tolist()}")
+    _, wrapped, _, names = traced(lambda: [compiled()
+                                           for _ in range(REPLAYS)])
+    device = trace_counts(names, LADDER_NAMES)
+    if any(wrapped.values()) or any(device[k] < REPLAYS
+                                     for k in LADDER_KEYS):
+        raise AssertionError(
+            f"{name}: {REPLAYS} replays launched {device} on the device, "
+            f"wrappers {wrapped}; kernels "
+            f"{sorted({n[:80] for n in names if 'ccl' in n})}")
+    ms = in_turns({"eager": eager, "compiled": compiled}, STEPS)
+    ev = {"eager": cuda_ms(eager, iters=STEPS, warmup=1),
+          "compiled": cuda_ms(compiled, iters=STEPS, warmup=1)}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log({"phase": name, "frames": frames.shape[0],
+         "stage_waves_b_c": waves, "eager_wave_tests": eager_tests,
+         "capture_s": capture_s, "capture_launches": first,
+         "graph_reserved_bytes": reserved1 - reserved0,
+         "replay_wave_tests": replay_tests, "floats_not_bit_equal": differ,
+         "best_ids": ids.tolist(), "traced_replays": REPLAYS,
+         "replay_device_launches": device,
+         "replay_kernels": len(names) / REPLAYS,
+         "kernels_seen": sorted({n[:80] for n in names
+                                 if "ccl" in n or "window" in n}),
+         "call_ms_median": med, "call_ms_all": ms, "call_ms_cuda_events": ev,
+         "frames_per_s": {k: frames.shape[0] * 1e3 / v
+                          for k, v in med.items()}, "gpu": gpu_line})
+    return {"waves": waves, "ms": med, "cuda_events_ms": ev,
+            "graph_reserved_bytes": reserved1 - reserved0,
+            "replay_device_launches": device}
+
+
+def eager_single(img):
+    """detect_tags_robust on its plain pieces."""
+    from repas_tpu_torch.detect import robust
+
+    with eager_steps(*ladder_steps()):
+        return robust.detect_tags_robust(img)
+
+
+def compiled_ladder(dev, gpu_line):
+    """The compiled ladder + pose (the bench's robust workload) against
+    the eager one on the 8-frame set and on the multi-wave set, then
+    detect_tags_robust compiled on one frame against its eager run (B4 in
+    its replay's trace). Frees the graphs after."""
+    from repas_tpu_torch.core.config import DetectorConfig, PnPConfig
+    from repas_tpu_torch.detect import robust
+
+    frames_np = robust_frames()
+    K = torch.from_numpy(ROBUST_K).to(dev)
+    cfg, tag = DetectorConfig(), PnPConfig().tag_size_m
+    out = {}
+    for name, idx in (("compiled_ladder", list(range(ROBUST_BATCH))),
+                      ("compiled_ladder_multi_wave", MULTI_WAVE)):
+        frames = torch.from_numpy(frames_np[idx]).to(dev)
+        out[name] = compiled_ladder_set(name, dev, gpu_line, frames, K, cfg,
+                                        tag, [ROBUST_IDS[i] for i in idx])
+    b, c = out["compiled_ladder_multi_wave"]["waves"]
+    if b < 2 or c < 2:
+        raise AssertionError(f"the multi-wave set ran {b} and {c} waves in "
+                             "stages B and C")
+    for m, n in ladder_steps():
+        getattr(m, n).clear()
+
+    img = torch.from_numpy(frames_np[0]).to(dev)
+    want = eager_single(img)
+    _, first = counted(lambda: robust.detect_tags_robust(img),
+                       "compiled detect_tags_robust capture",
+                       need=LADDER_KEYS)
+    got, counts = counted(lambda: robust.detect_tags_robust(img),
+                          "compiled detect_tags_robust replay", need=(),
+                          sync_error=True)
+    differ = replay_vs_eager(named_leaves(got), named_leaves(want),
+                             "compiled detect_tags_robust")
+    _, wrapped, _, names = traced(lambda: robust.detect_tags_robust(img))
+    device = trace_counts(names, LADDER_NAMES)
+    if any(counts.values()) or any(wrapped.values()) or \
+            device["ccl_tiled"] < 1 or 9 not in got.ids[got.valid].tolist():
+        raise AssertionError(f"compiled detect_tags_robust: ids "
+                             f"{got.ids.tolist()}, replay wrappers {counts}, "
+                             f"traced {device} (wrappers {wrapped})")
+    ms = in_turns({"eager": lambda: eager_single(img),
+                   "compiled": lambda: robust.detect_tags_robust(img)},
+                  STEPS)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log({"phase": "compiled_robust_single", "ids": got.ids.tolist(),
+         "capture_launches": first, "replay_device_launches": device,
+         "floats_not_bit_equal": differ, "ms_median": med,
+         "gpu": gpu_line})
+    out["compiled_robust_single"] = {"ms": med,
+                                     "replay_device_launches": device}
+    for m, n in ladder_steps():
+        getattr(m, n).clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+SHARDS = (2, 8)
+
+
+def compiled_sharded(dev, gpu_line):
+    """sharded_frame_pipeline(process_frames) over cuda:0 named n times at
+    720p, batch 16, for n in SHARDS: one compiled step per shard (n
+    graphs), a replay under sync-error mode without wrapper launches,
+    outputs bit-equal to the eager sharded step's (the steps' plain
+    functions) and to the unsharded step's, B1-B3 n times each in a
+    traced call, ms against the unsharded step eager and compiled."""
+    from repas_tpu_torch import pipeline
+    from repas_tpu_torch.core.config import PipelineConfig
+    from repas_tpu_torch.parallel import (frames_mesh, mesh as mesh_mod,
+                                          shard_batch, sharded_frame_pipeline)
+
+    rgbs_np, depths_np, K_np = bench_frames(BATCH)
+    rgbs = torch.from_numpy(rgbs_np).to(dev)
+    depths = torch.from_numpy(depths_np).to(dev)
+    K = torch.from_numpy(K_np).to(dev)
+    cfg = PipelineConfig()
+    fn = lambda r, d: pipeline.process_frames(r, d, K, cfg)  # noqa: E731
+    single = named_leaves(fn(rgbs, depths))
+    out = {}
+    for n in SHARDS:
+        mesh = frames_mesh(devices=[dev] * n)
+        run = sharded_frame_pipeline(fn, mesh)
+        orig = mesh_mod.jit
+        mesh_mod.jit = lambda f, **_: f
+        try:
+            eager_run = sharded_frame_pipeline(fn, mesh)
+        finally:
+            mesh_mod.jit = orig
+
+        def call(r=run, m=mesh):
+            return r(shard_batch(rgbs, m), shard_batch(depths, m))
+
+        want = named_leaves(call(eager_run))
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        reserved1 = torch.cuda.memory_reserved(dev)
+        graphs = [len(step.graphs) for step in run.steps]
+        got, counts = counted(call, f"compiled sharded step n={n}",
+                              need=(), sync_error=True)
+        if any(counts.values()) or graphs != [1] * n:
+            raise AssertionError(f"sharded n={n}: graphs per shard {graphs}"
+                                 f", a replay launched {counts}")
+        got = named_leaves(got)
+        replay_vs_eager(got, want, f"compiled sharded step n={n}")
+        differ = replay_vs_eager(got, single, f"sharded n={n} vs unsharded")
+        _, wrapped, device, _ = traced(call)
+        if any(wrapped.values()) or \
+                device != {k: n for k in PIPELINE_KEYS}:
+            raise AssertionError(f"sharded n={n}: a traced call launched "
+                                 f"{device}, wrappers {wrapped}")
+        ms = in_turns({"sharded_eager": lambda: call(eager_run),
+                       "sharded_compiled": call,
+                       "unsharded_eager": lambda: fn(rgbs, depths),
+                       "unsharded_compiled": lambda: pipeline.
+                       process_frames_jit(rgbs, depths, K, cfg)}, STEPS)
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        log({"phase": "compiled_sharded", "shards": n, "batch": BATCH,
+             "mesh_devices": [str(x) for x in mesh.devices],
+             "graphs_per_shard": graphs, "capture_s": capture_s,
+             "graph_reserved_bytes": reserved1 - reserved0,
+             "equal_to_eager_sharded": True,
+             "vs_unsharded_not_bit_equal": differ,
+             "traced_device_launches": device, "step_ms_median": med,
+             "step_ms_all": ms, "gpu": gpu_line})
+        out[n] = {"ms": med, "replay_device_launches": device}
+        for step in run.steps:
+            step.clear()
+    pipeline.process_frames_jit.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def compiled_phase(dev, gpu_line):
     """The captured steps (repas_tpu_torch.core.jit) against the eager
     ones: the batch-16 pipeline on the bench frame and with the lens's
@@ -3561,10 +3918,17 @@ def compiled_phase(dev, gpu_line):
     torch.cuda.empty_cache()
     entry = compiled_entry(dev, gpu_line)
     tracker = compiled_tracker(dev, gpu_line)
+    ladder = compiled_ladder(dev, gpu_line)
+    sharded = compiled_sharded(dev, gpu_line)
     replays = {k: sum(x["replay_device_launches"][k]
-                      for x in (pipe, dist, entry)) for k in PIPELINE_KEYS}
+                      for x in (pipe, dist, entry, *sharded.values()))
+               for k in PIPELINE_KEYS}
+    for k in LADDER_KEYS:
+        replays[k] = replays.get(k, 0) + sum(
+            x["replay_device_launches"][k] for x in ladder.values())
     log({"phase": "compiled", "pipeline": pipe, "distorted_pipeline": dist,
-         "entry": entry, "tracker_ms": tracker,
+         "entry": entry, "tracker_ms": tracker, "ladder": ladder,
+         "sharded": sharded,
          "replay_device_launches": replays,
          "traced_s": TRACED_S[0] - traced0,
          "phase_s": time.perf_counter() - t0, "gpu": gpu_line})
@@ -3708,7 +4072,13 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     dev_name = torch.cuda.get_device_name(0)
+    # conditional graph nodes (the compiled ladder's waves) need CUDA 12.4
+    # or later in the runtime and the driver
+    drv = subprocess.run(["nvidia-smi"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
+         "driver": re.search(r"Driver Version: *(\S+)", drv).group(1),
+         "driver_cuda": re.search(r"CUDA Version: *(\S+)", drv).group(1),
          "device": dev_name})
 
     t0 = time.perf_counter()
@@ -3770,7 +4140,10 @@ def main(argv=None) -> int:
          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
 
     with torch.no_grad():
-        records += robust_phase(dev, gpu_line)
+        # the eager ladder: the compiled phase holds the compiled one
+        # against it
+        with eager_steps(*ladder_steps()):
+            records += robust_phase(dev, gpu_line)
         records += calibrated_tracking_phase(dev, gpu_line, records)
         registration_phase(dev, gpu_line)
         records += cad_chain_phase(dev, gpu_line, args.keep)
@@ -3792,11 +4165,12 @@ def main(argv=None) -> int:
         rec["launches_tools"] = tools_counts[key]
         rec["launches_graft_entry"] = graft_counts[key]
         rec["launches_bench"] = bench_counts[key]
-        if key in PIPELINE_KEYS:
-            # launches inside replayed graphs, counted in the traces
-            rec["graph_launches_apps_stream"] = apps_graph[key]
-            rec["graph_launches_compiled"] = compiled_graph[key]
-            rec["graph_launches_bench"] = bench_graph[key]
+        # launches inside replayed graphs, counted in the traces
+        for phase, graph in (("apps_stream", apps_graph),
+                             ("compiled", compiled_graph),
+                             ("bench", bench_graph)):
+            if key in graph:
+                rec[f"graph_launches_{phase}"] = graph[key]
 
     log({"kernels": records})
     log({"ok": True, "device": {"platform": "gpu", "kind": dev_name,

@@ -24,7 +24,8 @@ once the extras have run inside the wall-clock budget
   vs_design_target      value / 30 (the reference's real-time target)
   mpts_per_s            value x H x W / 1e6
   robust_real_fps       null: the real captures are not in the repository
-  robust_synth_fps      the staged ladder + best-order PnP on 8 synthetic
+  robust_synth_fps      the compiled staged ladder + best-order PnP
+                        (CUDA graphs on the card) on 8 synthetic
                         720p frames, and
   robust_tags_found     its valid best slots (7: frame 7 has no tag)
   registration_1m_wall_s  seconds of one 1M vs 1M ``register_clouds``
@@ -47,6 +48,7 @@ Without a card it raises unless given ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -62,6 +64,7 @@ from repas_tpu_torch.cloud.registration import register_clouds
 from repas_tpu_torch.core.config import (DetectorConfig, PipelineConfig,
                                          PnPConfig)
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import rodrigues
 from repas_tpu_torch.detect.render import example_frame, render_tag_in_scene
 from repas_tpu_torch.detect.robust import detect_tags_robust_staged
@@ -190,16 +193,24 @@ def robust_frames(seed: int = 0):
         np.uint8)
 
 
-def ladder_and_pose(frames, K, cfg, tag):
-    """The robust workload (bench.py's ``run`` and ``pose_batch``): the
-    staged ladder, then best-order PnP on each frame's best slot by
-    margin. Returns (Detections, best slot (B,), t (B,3), err (B,))."""
-    det = detect_tags_robust_staged(frames, cfg)
+@functools.partial(jit, static_argnames=("tag_size",))
+def pose_batch(det, K, tag_size):
+    """bench.py's ``pose_batch``: best-order PnP on each frame's best slot
+    by margin. Returns (best slot (B,), t (B,3), err (B,))."""
     best = torch.argmax(torch.where(det.valid, det.decision_margin, -1.0),
                         dim=1)
-    rows = torch.arange(frames.shape[0], device=frames.device)
-    R, t, err, order = solve_pnp_best_order(det.corners[rows, best], K, tag)
-    return det, best, t, err
+    rows = torch.arange(best.shape[0], device=best.device)
+    _, t, err, _ = solve_pnp_best_order(det.corners[rows, best], K,
+                                        tag_size)
+    return best, t, err
+
+
+def ladder_and_pose(frames, K, cfg, tag):
+    """The robust workload (bench.py's ``run``): the staged ladder, then
+    ``pose_batch``, each of its steps compiled. Returns (Detections,
+    best slot (B,), t (B,3), err (B,))."""
+    det = detect_tags_robust_staged(frames, cfg)
+    return (det, *pose_batch(det, K, tag))
 
 
 def _time_robust_ladder(device=None):

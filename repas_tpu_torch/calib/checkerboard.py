@@ -15,6 +15,13 @@ replaces OpenCV's path:
     basis tangents as one batch dimension), and each step solves with
     ``solve_ex``, so the loop reads nothing back until the final RMS.
 
+The reference's jitted pieces are compiled steps here (``core.jit``: a
+CUDA graph per static configuration on the card, the function itself on
+the CPU): ``refine_corners_subpix`` and the LM's step (the reference's
+``lax.scan`` body), which ``calibrate_camera`` replays once per
+iteration. The step solves with cuSOLVER on the card, which reads no
+status on the host.
+
 Ties are broken as the reference's: ``lax.top_k`` and ``nanargmin`` keep
 the lowest index, so peaks are ranked by (score descending, index
 ascending) with a stable sort. The homography fits solve their least
@@ -24,12 +31,15 @@ are equal (tests/test_torch_calib.py).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import rodrigues, rodrigues_inv
 from repas_tpu_torch.kernels.image import (_pad_edge, _window2d,
                                            bilinear_sample, gaussian_blur,
@@ -170,6 +180,7 @@ def detect_checkerboard_corners(gray: torch.Tensor, cols: int, rows: int,
     return snapped, ok
 
 
+@functools.partial(jit, static_argnames=("win", "iters"))
 def refine_corners_subpix(gray: torch.Tensor, corners: torch.Tensor,
                           win: int = 5, iters: int = 20):
     """cornerSubPix equivalent, batched over corners (C,2): iterates
@@ -299,6 +310,50 @@ def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
     return J.T
 
 
+@contextlib.contextmanager
+def _cusolver(dev: torch.device):
+    """cuSOLVER for the linear algebra on a CUDA device: the default
+    heuristic may route a small solve to MAGMA, which synchronises."""
+    if dev.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+@functools.partial(jit, static_argnames=("n_dist",))
+def _lm_step(p: torch.Tensor, lam: torch.Tensor, obj: torch.Tensor,
+             img: torch.Tensor, n_dist: int):
+    """One Levenberg-Marquardt step of ``calibrate_camera`` (the
+    reference's scan body): packed parameters p (P,) and damping lam ()
+    -> the next (p, lam). A step that does not lower the squared
+    residuals keeps p and raises lam."""
+    def residuals(q):
+        return _calib_residuals(q, obj, img, n_dist)
+
+    eye = torch.eye(p.shape[0], dtype=torch.float32, device=p.device)
+    with _cusolver(p.device):
+        r = residuals(p)
+        J = _jacobian(residuals, p)
+        JTJ = J.T @ J
+        g = J.T @ r
+        # Jacobi column scaling: the parameters span orders of magnitude
+        # (fx ~ 1e3 vs k3 ~ 1e-2)
+        Dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(JTJ), min=1e-12))
+        A = JTJ * Dinv[:, None] * Dinv[None, :]
+        y = torch.linalg.solve_ex(A + lam * eye, (g * Dinv)[:, None]
+                                  ).result[:, 0]
+        p_new = p - y * Dinv
+        better = torch.sum(residuals(p_new) ** 2) < torch.sum(r ** 2)
+    lam = torch.where(better, torch.clamp(lam * 0.3, min=1e-10),
+                      torch.clamp(lam * 5.0, max=1e3))
+    return torch.where(better, p_new, p), lam
+
+
 def calibrate_camera(obj_pts: np.ndarray, img_pts: np.ndarray,
                      image_size: tuple[int, int], iters: int = 100,
                      n_dist: int = 5, device=None):
@@ -307,8 +362,8 @@ def calibrate_camera(obj_pts: np.ndarray, img_pts: np.ndarray,
     obj_pts (V,N,3) board points (z=0), img_pts (V,N,2) detected corners
     (host arrays). The Zhang initialisation runs on the host in float64;
     the LM runs on `device` (default CUDA, raising without a card;
-    ``core/device.py``). Returns (K (3,3), dist (8,), rms, rvecs (V,3),
-    tvecs (V,3)) as numpy."""
+    ``core/device.py``), ``_lm_step`` replayed `iters` times. Returns
+    (K (3,3), dist (8,), rms, rvecs (V,3), tvecs (V,3)) as numpy."""
     dev = host_data_device(device)
     obj_pts = np.asarray(obj_pts)
     img_pts = np.asarray(img_pts)
@@ -341,29 +396,11 @@ def calibrate_camera(obj_pts: np.ndarray, img_pts: np.ndarray,
     obj = torch.as_tensor(obj_pts, dtype=torch.float32, device=dev)
     img = torch.as_tensor(img_pts, dtype=torch.float32, device=dev)
 
-    def residuals(q):
-        return _calib_residuals(q, obj, img, n_dist)
-
-    eye = torch.eye(p.shape[0], dtype=torch.float32, device=dev)
     lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
     for _ in range(iters):
-        r = residuals(p)
-        J = _jacobian(residuals, p)
-        JTJ = J.T @ J
-        g = J.T @ r
-        # Jacobi column scaling: the parameters span orders of magnitude
-        # (fx ~ 1e3 vs k3 ~ 1e-2)
-        Dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(JTJ), min=1e-12))
-        A = JTJ * Dinv[:, None] * Dinv[None, :]
-        y = torch.linalg.solve_ex(A + lam * eye, (g * Dinv)[:, None]
-                                  ).result[:, 0]
-        p_new = p - y * Dinv
-        better = torch.sum(residuals(p_new) ** 2) < torch.sum(r ** 2)
-        lam = torch.where(better, torch.clamp(lam * 0.3, min=1e-10),
-                          torch.clamp(lam * 5.0, max=1e3))
-        p = torch.where(better, p_new, p)
+        p, lam = _lm_step(p, lam, obj, img, n_dist)
 
-    r = residuals(p)
+    r = _calib_residuals(p, obj, img, n_dist)
     rms = float(torch.sqrt(torch.mean(r ** 2)))
     p = p.cpu().numpy()
     K = np.array([[p[0], 0, p[2]], [0, p[1], p[3]], [0, 0, 1.0]],

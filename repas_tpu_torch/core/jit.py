@@ -47,9 +47,21 @@ every launch of one call into a ``torch.cuda.CUDAGraph``:
 Calls are ordered on the caller's current stream. A graph has one set
 of static buffers, so a replay on another stream than the graph's last
 one waits for that replay (and its output clones) to finish first.
+
+``while_loop(cond_fn, body_fn, state, max_trips)`` is the counterpart of
+``jax.lax.while_loop`` inside a compiled step, for a condition that stays
+false once it is false. Outside a capture it is a Python loop that reads
+the condition on the host before each trip. Inside one it records
+``max_trips`` conditional (IF) nodes in sequence, each gated by the
+condition computed on the device after the trip before it, so a replay
+runs the trips the data needs and reads nothing on the host. Conditional
+nodes need CUDA 12.4 or later, in the runtime and the driver; the port
+records them through the CUDA runtime (``kernels/csrc/graph_if.cu``),
+as PyTorch 2.11 has no Python API for them.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import threading
@@ -63,6 +75,7 @@ WARMUP = 1
 
 _JITTED = weakref.WeakSet()     # every compiled function, for clear_caches
 _pinning = threading.local()    # .pins: what the running capture reads
+_warming = threading.local()    # .on: a capture's eager warm-up runs
 
 
 def pin(x):
@@ -223,9 +236,13 @@ class Jitted:
             stream = self._streams[dev] = torch.cuda.Stream(dev)
         cur = torch.cuda.current_stream(dev)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP):
-                self._call_with(bound, static_in)
+        _warming.on = True
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUP):
+                    self._call_with(bound, static_in)
+        finally:
+            _warming.on = False
         cur.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         pins = _pinning.pins = []
@@ -274,3 +291,101 @@ def jit(fn, *, static_argnames=()) -> Jitted:
     graph per key, replayed; on the CPU ``fn`` itself (module
     docstring)."""
     return Jitted(fn, static_argnames)
+
+
+def _capturing(leaves) -> bool:
+    """Whether a capture records the work on these tensors."""
+    return any(t.is_cuda for t in leaves) and \
+        torch.cuda.is_current_stream_capturing()
+
+
+_body_streams = {}      # device -> the stream IF bodies are captured from
+
+
+@contextlib.contextmanager
+def _if_node(pred: torch.Tensor, pool):
+    """Work issued inside is recorded into the body of an IF node that
+    the running capture adds after `pred` (a one-element bool tensor on
+    the card): ``csrc/graph_if.cu``. The body's allocations come from
+    `pool`, which the graph keeps alive."""
+    from repas_tpu_torch.kernels import _build
+
+    dev = pred.device
+    body = _body_streams.get(dev)
+    if body is None:
+        body = _body_streams[dev] = torch.cuda.Stream(dev)
+    lib = _build.library()
+    _build.check("repas_if_begin", lib.repas_if_begin(
+        pred.reshape(()).data_ptr(), body.cuda_stream, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream))
+    torch._C._cuda_beginAllocateCurrentThreadToPool(dev.index, pool.id)
+    try:
+        with torch.cuda.stream(body):
+            yield
+    finally:
+        torch._C._cuda_endAllocateToPool(dev.index, pool.id)
+        torch._C._cuda_releasePool(dev.index, pool.id)
+        _build.check("repas_if_end", lib.repas_if_end(body.cuda_stream,
+                                                      dev.index))
+
+
+def while_loop(cond_fn, body_fn, state, max_trips: int, on_test=None):
+    """``jax.lax.while_loop(cond_fn, body_fn, state)`` for at most
+    `max_trips` trips of a condition that stays false once false.
+
+    `state` is a tensor tree (tuples, lists, NamedTuples); body_fn(state)
+    returns a tree of the same shapes and dtypes, and cond_fn(state) a
+    one-element bool tensor. Returns the final state.
+
+    * Outside a capture: reads cond_fn on the host before each trip
+      (calling `on_test` each time) and raises RuntimeError if it still
+      holds after `max_trips` trips. In a capture's eager warm-up the body
+      first runs once on a copy of the state, whose result is dropped, so
+      its lazy caches (kernel builds, constants, launch plans) are filled
+      before the capture records it even where the loop runs no trip.
+    * Inside a ``jit`` capture: `max_trips` IF nodes, each gated by
+      cond_fn of the state after the one before; each body writes its
+      result into the state's own tensors (a skipped body leaves them),
+      so the nodes after it read fixed addresses. The bodies are captured
+      from one stream and allocate from one memory pool, which the graph
+      keeps, so a body reuses the blocks the one before freed.
+    """
+    leaves = []
+    tree = _flatten(state, leaves, "state")
+
+    def rebuild(ts):
+        return _unflatten(tree, iter(ts))
+
+    def flat(new):
+        out = []
+        if _flatten(new, out, "body output") != tree or any(
+                (a.shape, a.dtype) != (b.shape, b.dtype)
+                for a, b in zip(out, leaves)):
+            raise ValueError("while_loop: the body changed the state's "
+                             "structure, shapes or dtypes")
+        return out
+
+    if _capturing(leaves):
+        if getattr(_pinning, "pins", None) is None:
+            raise RuntimeError("while_loop: a capture records its trips "
+                               "only inside a core.jit step")
+        with torch.cuda.device(leaves[0].device):
+            pool = pin(torch.cuda.MemPool())
+        bufs = [t.clone() for t in leaves]
+        for _ in range(max_trips):
+            with _if_node(cond_fn(rebuild(bufs)), pool):
+                for buf, t in zip(bufs, flat(body_fn(rebuild(bufs)))):
+                    buf.copy_(t)
+        return rebuild(bufs)
+
+    if getattr(_warming, "on", False):
+        flat(body_fn(rebuild([t.clone() for t in leaves])))
+    for trip in range(max_trips + 1):
+        if on_test is not None:
+            on_test()
+        if not bool(cond_fn(rebuild(leaves))):
+            return rebuild(leaves)
+        if trip == max_trips:
+            raise RuntimeError(f"while_loop: the condition still holds "
+                               f"after max_trips={max_trips} trips")
+        leaves = flat(body_fn(rebuild(leaves)))

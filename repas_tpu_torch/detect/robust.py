@@ -11,17 +11,29 @@ on (N, ...) tensors.
 The staged ladder keeps the reference's waves: stages B and C each pick
 ``_ESC_K`` frames per wave on the device (top-k over "not found and not
 attempted") until every frame that needs the tier has had it. The
-reference runs the waves in ``lax.while_loop``; here the loop condition
-is read on the host, once per wave test, and nothing else in the ladder
-waits for the device.
+reference runs the waves in ``lax.while_loop``; here they run in
+``core.jit.while_loop``, bounded by ceil(N / k) trips: a wave attempts
+k frames that were neither found nor attempted, or all that are left,
+and a frame once found or attempted stays so.
+
+The reference's jitted pieces are compiled steps here (``core.jit``: a
+CUDA graph per static configuration on the card, the function itself on
+the CPU; the plain function is each step's ``.fn``): stages A, B and C,
+and ``detect_tags_robust``'s variant stack, batched detect and merge.
+Captured, the wave loops are conditional graph nodes, so a replayed
+ladder reads nothing on the host. Run eagerly (the capture's warm-up, or
+the ``.fn`` functions), the loop condition is read on the host once per
+wave test and counted in ``host_reads``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repas_tpu_torch.core.config import DetectorConfig
+from repas_tpu_torch.core.jit import jit, while_loop
 from repas_tpu_torch.detect.detector import Detections, detect_tags
 from repas_tpu_torch.kernels.ccl import top_k_stable
 from repas_tpu_torch.kernels.image import (clahe, gamma_lut, gaussian_blur,
@@ -33,8 +45,8 @@ _ROI = 256
 _ROI_Q = 4          # candidate windows re-examined per escalated frame
 _ESC_K = 2          # frames escalated per wave
 
-# Host reads of the wave loops' condition, the ladder's only device
-# reads (one per wave test); callers may reset it.
+# Host reads of the wave loops' condition in an eager ladder, its only
+# device reads (one per wave test); callers may reset it.
 host_reads = {"wave_tests": 0}
 
 
@@ -96,6 +108,7 @@ def _gray(img: torch.Tensor, rgb: bool) -> torch.Tensor:
     return rgb_to_gray(img) if rgb else img.to(torch.float32)
 
 
+@functools.partial(jit, static_argnames=("use_clahe", "use_gamma", "gamma"))
 def _enhance_stack(img: torch.Tensor, use_clahe: bool, use_gamma: bool,
                    gamma: float):
     """Variant stack (V,H,W) of one image + its (gray, clahe)."""
@@ -118,6 +131,17 @@ def _one(det: Detections) -> Detections:
     return Detections(*(x[0] for x in det))
 
 
+@functools.partial(jit, static_argnames=("config",))
+def _detect_batch(batch: torch.Tensor, config: DetectorConfig) -> Detections:
+    """One image's variant stack (V,H,W) detected as one frame: (1,V,D)."""
+    return _stacked(detect_tags(batch, config))
+
+
+@functools.partial(jit, static_argnames=("D",))
+def _merge_jit(dets: list, D: int) -> Detections:
+    return _merge_by_margin(dets, D)
+
+
 def detect_tags_robust(img: torch.Tensor,
                        config: DetectorConfig = DetectorConfig(),
                        use_clahe: bool = True, use_gamma: bool = True,
@@ -127,11 +151,11 @@ def detect_tags_robust(img: torch.Tensor,
     variants, plus a decimate-1 pass over [raw, CLAHE] when config
     decimates, and merge by decision margin. Returns (D,) slots."""
     batch, gray, cl = _enhance_stack(img, use_clahe, use_gamma, gamma)
-    dets = [_stacked(detect_tags(batch, config))]
+    dets = [_detect_batch(batch, config)]
     if full_res_pass and config.quad_decimate > 1:
         cfg1 = dataclasses.replace(config, quad_decimate=1.0)
-        dets.append(_stacked(detect_tags(torch.stack([gray, cl]), cfg1)))
-    return _one(_merge_by_margin(dets, config.max_detections))
+        dets.append(_detect_batch(torch.stack([gray, cl]), cfg1))
+    return _one(_merge_jit(dets, config.max_detections))
 
 
 def _top_rois(bbox: torch.Tensor, score: torch.Tensor, q: int):
@@ -152,6 +176,7 @@ def _top_rois(bbox: torch.Tensor, score: torch.Tensor, q: int):
     return torch.gather(b, 1, qi[..., None].expand(-1, -1, 4)), top_s
 
 
+@functools.partial(jit, static_argnames=("config",))
 def _stage_a(frames: torch.Tensor, config: DetectorConfig):
     """Stage A: CLAHE decimated sweep on every frame -> (Detections,
     found (N,), grays (N,H,W), top-Q candidate ROIs (N,Q,4), their
@@ -182,27 +207,54 @@ def _scatter(d: Detections, idx: torch.Tensor, m: Detections) -> Detections:
     return Detections(*out)
 
 
+def _select_b(done, rscores, k):
+    """Stage B's wave: the k frames neither found nor attempted with the
+    strongest candidate evidence first, done frames last."""
+    sel_score = torch.where(done, -1.0, 1.0 + torch.amax(rscores, dim=1))
+    return top_k_stable(sel_score, k)[1]
+
+
+def _select_c(done, k):
+    """Stage C's wave: the first k frames neither found nor attempted."""
+    return top_k_stable(torch.where(done, -1.0, 1.0), k)[1]
+
+
+def _count_wave_test():
+    host_reads["wave_tests"] += 1
+
+
 def _waves(det, found, select, escalate, D):
-    """Run waves of _ESC_K frames until every frame is found or has been
-    attempted: select(done) -> frame indices (k,), escalate(idx, live) ->
-    (k,D) detections merged into those frames. The loop condition is the
-    ladder's only read of the device."""
-    attempted = torch.zeros_like(found)
-    while True:
-        host_reads["wave_tests"] += 1
-        if not bool(torch.any(~found & ~attempted)):
-            break
+    """Run waves of k = min(_ESC_K, N) frames until every frame is found
+    or has been attempted: select(done) -> frame indices (k,),
+    escalate(idx, live) -> (k,D) detections merged into those frames.
+    The reference's lax.while_loop, at most ceil(N / k) waves."""
+    n = found.shape[0]
+    k = min(_ESC_K, n)
+
+    def pending(state):
+        _, found, attempted = state
+        return torch.any(~found & ~attempted)
+
+    def wave(state):
+        det, found, attempted = state
         done = found | attempted
         sel_idx = select(done)
         sel_live = ~done[sel_idx]
         det_esc = escalate(sel_idx, sel_live)
         merged = _merge_by_margin([_index(det, sel_idx), det_esc], D)
         det = _scatter(det, sel_idx, merged)
-        attempted[sel_idx] = attempted[sel_idx] | sel_live
-        found = det.valid.any(dim=1)
+        attempted = attempted.index_put((sel_idx,),
+                                        attempted[sel_idx] | sel_live)
+        return det, det.valid.any(dim=1), attempted
+
+    det, found, _ = while_loop(pending, wave,
+                               (det, found, torch.zeros_like(found)),
+                               max_trips=-(-n // k),
+                               on_test=_count_wave_test)
     return det, found
 
 
+@functools.partial(jit, static_argnames=("config",))
 def _stage_b(grays, det: Detections, found, rois, rscores,
              config: DetectorConfig):
     """Stage B: full-resolution [raw, CLAHE] re-detection on the top-Q
@@ -217,8 +269,7 @@ def _stage_b(grays, det: Detections, found, rois, rscores,
     ar = torch.arange(r, device=dev)
 
     def select(done):
-        sel_score = torch.where(done, -1.0, 1.0 + torch.amax(rscores, dim=1))
-        return top_k_stable(sel_score, k)[1]
+        return _select_b(done, rscores, k)
 
     def escalate(sel_idx, sel_live):
         boxes, scores = rois[sel_idx], rscores[sel_idx]          # (k,Q,...)
@@ -245,6 +296,7 @@ def _stage_b(grays, det: Detections, found, rois, rscores,
     return _waves(det, found, select, escalate, D)
 
 
+@functools.partial(jit, static_argnames=("config",))
 def _stage_c(grays, det: Detections, found, config: DetectorConfig):
     """Stage C: whole-frame full-resolution [raw, CLAHE] sweep on frames
     still empty after stage B."""
@@ -253,7 +305,7 @@ def _stage_c(grays, det: Detections, found, config: DetectorConfig):
     k = min(_ESC_K, grays.shape[0])
 
     def select(done):
-        return top_k_stable(torch.where(done, -1.0, 1.0), k)[1]
+        return _select_c(done, k)
 
     def escalate(sel_idx, sel_live):
         g = grays[sel_idx]

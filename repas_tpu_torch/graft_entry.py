@@ -7,8 +7,9 @@ Port of ``__graft_entry__.py``:
                          cloud) and its example frame on `device`.
   dryrun_multichip(n) -> the batched pipeline step over an n-device
                          ``frames`` mesh plus the fusion gather and the
-                         batch reduction, one step on 96x128 frames; prints
-                         the JAX dry run's line and returns its values.
+                         batch reduction, one step on 96x128 frames (the
+                         shards' steps compiled); prints the JAX dry run's
+                         line and returns its values.
 
 Both run on the card unless given another device (``core/device.py``:
 without a card they raise). The JAX module re-executes itself in a
@@ -75,9 +76,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     rgbs = torch.from_numpy(rgb).expand(B, *rgb.shape).contiguous()
     depths = torch.from_numpy(depth).expand(B, *depth.shape).contiguous()
     cfg = PipelineConfig(detector=DRYRUN_DETECTOR)
+    # K on each shard's device: a compiled step copies nothing from the
+    # host
+    Ks = {k.device: k for k in (torch.from_numpy(K).to(d)
+                                for d in set(mesh.devices))}
 
     run = sharded_frame_pipeline(
-        lambda r, d: process_frames(r, d, K, cfg), mesh)
+        lambda r, d: process_frames(r, d, Ks[r.device], cfg), mesh)
     out = run(shard_batch(rgbs, mesh), shard_batch(depths, mesh))
 
     # collectives: multi-view fusion + global stats (the point cloud is

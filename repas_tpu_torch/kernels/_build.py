@@ -61,6 +61,10 @@ _SIGNATURES = {
     "repas_patch_extract": [_P, _P, _P, *[_I] * 16, _P],
     # depth, rgb, K, scale, out, B, H, W, device, stream
     "repas_pointcloud": [_P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _P],
+    # pred, body stream, device, stream (csrc/graph_if.cu)
+    "repas_if_begin": [_P, _P, _I, _P],
+    # body stream, device
+    "repas_if_end": [_P, _I],
 }
 
 

@@ -1,0 +1,72 @@
+// Conditional (IF) nodes for a CUDA graph being captured from a stream:
+// the counterpart, on the card, of one trip of jax.lax.while_loop inside
+// a jitted step (repas_tpu_torch/core/jit.py::while_loop). Not a port of
+// a TPU kernel: PyTorch 2.11 has no Python API for conditional nodes,
+// so the port records them through the CUDA runtime (12.4 or later, in
+// the runtime and the driver).
+//
+// repas_if_begin, on a stream that is capturing into graph G:
+//   1. creates a conditional handle of G;
+//   2. records set_if, one thread that sets the handle from a device
+//      bool (the loop condition, computed before it on the stream);
+//   3. adds an IF node after set_if and makes the stream's later work
+//      depend on it;
+//   4. starts capturing a second stream into the node's body graph.
+// The caller issues the body's work on that stream, then calls
+// repas_if_end, which ends the body's capture. When G replays, the body
+// runs only where the bool was true; nothing is read on the host.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void set_if(cudaGraphConditionalHandle handle, const bool* pred) {
+  cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+}  // namespace
+
+extern "C" int repas_if_begin(const void* pred, void* body_stream, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  err = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
+  if (err != cudaSuccess) return (int)err;
+  if (status != cudaStreamCaptureStatusActive)
+    return (int)cudaErrorStreamCaptureImplicit;
+  cudaGraphConditionalHandle handle;
+  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  if (err != cudaSuccess) return (int)err;
+  set_if<<<1, 1, 0, s>>>(handle, (const bool*)pred);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the IF node depends on set_if, the stream's last captured node
+  err = cudaStreamGetCaptureInfo(s, &status, nullptr, &graph, &deps, &n_deps);
+  if (err != cudaSuccess) return (int)err;
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  err = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaStreamUpdateCaptureDependencies(s, &node, 1,
+                                            cudaStreamSetCaptureDependencies);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaStreamBeginCaptureToGraph(
+      (cudaStream_t)body_stream, params.conditional.phGraph_out[0], nullptr,
+      nullptr, 0, cudaStreamCaptureModeGlobal);
+}
+
+extern "C" int repas_if_end(void* body_stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaGraph_t body;
+  return (int)cudaStreamEndCapture((cudaStream_t)body_stream, &body);
+}

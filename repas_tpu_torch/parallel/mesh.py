@@ -9,6 +9,9 @@ its shards, one contiguous chunk of frames per device, in order.
   * `sharded_frame_pipeline` — run a per-frame function on each shard on
     its device, each shard on a CUDA stream of its own, and concatenate
     the shards' outputs in order (no cross-device traffic until then).
+    The function is compiled once per shard (``core.jit``, as the
+    reference jits ``run``): on the card each shard replays a CUDA graph
+    of its own, so the shards' replays never wait on each other.
   * `fuse_views_allgather`  — gather every shard's views into one fused
     cloud and copy it to every device of the mesh (peer copies).
   * `batch_stats_psum`      — masked mean and count over all shards.
@@ -28,6 +31,7 @@ from typing import Callable
 import torch
 
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 
 
 @dataclass(frozen=True)
@@ -102,13 +106,13 @@ def _join(outs: list, dev: torch.device):
     return first
 
 
-def _each_shard(mesh: FramesMesh, fn: Callable, shard_args: list):
-    """fn(*shard_args[i]) on mesh.devices[i], each CUDA shard on a stream
-    of its own; returns the outputs once every device's current stream
-    has been made to wait for its shards."""
+def _each_shard(mesh: FramesMesh, fns: list, shard_args: list):
+    """fns[i](*shard_args[i]) on mesh.devices[i], each CUDA shard on a
+    stream of its own; returns the outputs once every device's current
+    stream has been made to wait for its shards."""
     streams = [_stream_on(d) for d in mesh.devices]
     outs = []
-    for dev, s, args in zip(mesh.devices, streams, shard_args):
+    for fn, s, args in zip(fns, streams, shard_args):
         ctx = (torch.cuda.stream(s) if s is not None
                else contextlib.nullcontext())
         with ctx:
@@ -150,17 +154,53 @@ def _split_args(args, mesh: FramesMesh) -> list:
     return [tuple(c[i] for c in cols) for i in range(mesh.size)]
 
 
+def _tensor_tree(x) -> bool:
+    """Whether x holds tensors and None only (through tuples and lists):
+    a compiled step's tensor argument."""
+    if torch.is_tensor(x) or x is None:
+        return True
+    return isinstance(x, (tuple, list)) and all(map(_tensor_tree, x))
+
+
+def _shard_step(fn: Callable):
+    """fn as a step of (tensors, statics): statics ((position, value),
+    ...) in ascending position, the tensors filling the other positions
+    in order."""
+
+    def step(tensors, statics):
+        args = list(tensors)
+        for i, v in statics:
+            args.insert(i, v)
+        return fn(*args)
+
+    step.__qualname__ = f"shard of {getattr(fn, '__qualname__', fn)}"
+    return step
+
+
 def sharded_frame_pipeline(fn: Callable, mesh: FramesMesh,
                            axis: str = "frames"):
     """`fn` (operating on a batch, each frame independent of the others)
     run shard by shard on the mesh; the returned function takes Shards
     or batched tensors and returns fn's output tree with the shards'
-    outputs concatenated in order on the mesh's first device."""
+    outputs concatenated in order on the mesh's first device.
+
+    fn is compiled once per shard index (``run.steps``, one ``core.jit``
+    step each). An argument that is not a tensor tree (tensors and None
+    through tuples and lists) goes to every shard as a static argument of
+    the step: it must be hashable (jit raises TypeError otherwise), and
+    each value keys its own graph.
+    """
+    steps = [jit(_shard_step(fn), static_argnames=("statics",))
+             for _ in mesh.devices]
 
     def run(*args):
-        outs = _each_shard(mesh, fn, _split_args(args, mesh))
-        return _join(outs, mesh.devices[0])
+        static = [not _tensor_tree(a) for a in args]
+        statics = tuple((i, a) for i, a in enumerate(args) if static[i])
+        shard_args = [(tuple(a for a, st in zip(per, static) if not st),
+                       statics) for per in _split_args(args, mesh)]
+        return _join(_each_shard(mesh, steps, shard_args), mesh.devices[0])
 
+    run.steps = steps
     return run
 
 
@@ -191,7 +231,8 @@ def batch_stats_psum(mesh: FramesMesh, axis: str = "frames"):
             return torch.stack([torch.sum(torch.where(m, v, 0.0)),
                                 torch.sum(m.to(torch.float32))])
 
-        parts = _each_shard(mesh, part, _split_args((v, m), mesh))
+        parts = _each_shard(mesh, [part] * mesh.size,
+                            _split_args((v, m), mesh))
         s, c = torch.stack([p.to(mesh.devices[0]) for p in parts]).sum(0)
         return s / torch.clamp(c, min=1.0), c
 
