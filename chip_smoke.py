@@ -53,20 +53,40 @@
    pieces captured anew: B4 launched in the capture); (c) the tag
    bundle's SQPnP on the card against the CPU; (d) depth-to-color
    alignment and NV12/YUYV decoding at 720p against the CPU;
-7. the registration phase (repas_tpu_torch.cloud, no kernel of its own):
-   (a) register_clouds on the JAX bench's 1M-point scene (bench.py's
-   bumpy surface, seed 7, the source moved by rv (0.04, -0.06, 0.30) and
-   t (0.06, -0.04, 0.05)) with tensors on the card: ICP fitness > 0.5,
-   t error < 1 mm, R error < 0.05 degrees, no voxel dropped (n_down <=
-   capacity); its synchronising calls counted; (b) one timed run, then
-   the stages one by one with a synchronise between them (the split;
-   both skipped if the first run took over 60 s); (c) on a 20k-point
-   pair of the same surface, ICP from one T_init, RANSAC on one set of
-   picks and the two-level grid query, each on the card against the CPU;
-   (d) the capture side at 720p: create_masked_pointcloud on the bench
-   frame (5 mm voxels, default outlier removal, normals) with its peak
-   memory (under 40 GB), then its stages on the card against the CPU on
-   one sample, and the tag-anchored crop around the frame's fused pose;
+7. the registration phase (repas_tpu_torch.cloud, compiled: each stage
+   of register_clouds a captured graph, ICP's loop one WHILE graph node;
+   kernels K1, the 3x3 eigh, and K2, the Kabsch rotation): (a)
+   register_clouds on the JAX bench's 1M-point scene (bench.py's bumpy
+   surface, seed 7, the source moved by rv (0.04, -0.06, 0.30) and t
+   (0.06, -0.04, 0.05)) with tensors on the card, at the defaults
+   (capacity 8192, 8192 hypotheses, 100 ICP iterations, 64^3 ICP grid):
+   the eager call (core.jit.disable_jit) records K1's inputs (the 1M
+   target's covariances) and K2's (one RANSAC draw's 8,192 triples);
+   K1 and K2 held against their plain versions there (in float64, and
+   in float32 where float32 determines the answer: the tolerances in
+   check_k1 and check_k2), timed beside their bound and cuSOLVER's
+   calls; the warm call that captures every stage, with the launch
+   counts set to 0 just before it (K1 and K2 launched); the compiled
+   call: ICP fitness > 0.5, t error < 1 mm, R error < 0.05 degrees, no
+   voxel dropped (n_down <= capacity), at most 8 synchronising calls and
+   none inside a replay, no new graph, T within 1e-5 m and 1e-3 degrees
+   of the eager call's; a traced compiled call (K1 and K2 on the device,
+   no cuSOLVER eigh or SVD kernel, its kernels and device ms); compiled
+   and eager seconds in turns (3 each); the stages one by one with a
+   synchronise between them (the split); each graph's reserved bytes;
+   ICP alone from one T_init, compiled against eager (the same
+   iterations, T within 1e-6 m; the capture's seconds and the graph's
+   nodes, the WHILE body's), and with masked source points (C9's NaN
+   RMSE) run to max_iters; one ICP correspondence pass's device and
+   host ms; (b) on a 20k-point pair of the same surface, ICP from one
+   T_init, RANSAC on one set of picks and the two-level grid query, each
+   on the card against the CPU; (c) the capture side at 720p:
+   create_masked_pointcloud on the bench frame (5 mm voxels, default
+   outlier removal, normals), compiled (three graphs, the samples drawn
+   between them) against eager: valid masks, points, colours and
+   normals, peak memory (under 40 GB); then its stages on the card
+   against the CPU on one sample, and the tag-anchored crop around the
+   frame's fused pose;
 8. the cad_chain phase: the port's six CLIs (repas_tpu_torch.apps), called
    in-process on the card on one 1280x720 capture written under a
    temporary directory (PNGs from the standard library's zlib, so the log
@@ -206,11 +226,13 @@
    roundings), robust_tags_found 7, registration_1m_status "ok", device
    equal to the card's line; the host's CPU count and the phase's
    seconds;
-15. prints one JSON line of kernel results (B1-B6, with each kernel's
-   launches in the canopy_calib_eval, apps_stream, tools, graft_entry
-   and bench phases, as the wrappers count them; B1-B3 also with their
-   launches inside replayed graphs in the apps_stream, compiled and
-   bench phases, as the traces count them; each
+15. prints one JSON line of kernel results (B1-B6, K1 and K2, with each
+   kernel's launches in the canopy_calib_eval, apps_stream, tools,
+   graft_entry and bench phases, as the wrappers count them; K1 and K2
+   with their launches in the registration phase's capturing call and
+   in its traced replay; B1-B3 also with their launches inside replayed
+   graphs in the apps_stream, compiled and bench phases, as the traces
+   count them; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
    "scalar", and on the TMA path its plan: bh, bw, stages, grid,
    smem_bytes), then, last, one JSON line {"ok": true, "device": {...}}.
@@ -249,6 +271,7 @@ from repas_tpu_torch.bench import (BATCH, H, REG_N, REG_RV, REG_SEED, REG_T,
 # quarter of the f32 FLOP rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12          # outside the tensor cores (67e12 inside)
 INT32_OPS_PER_S = F32_OPS_PER_S / 4
 # int32 operations per pixel per CCL round: four scan directions of (min,
 # select), the separable 3x3 min (four mins) and the background select
@@ -296,7 +319,17 @@ TRACK_MODES = (["register"] + ["track"] * (TRACK_MOTION - 1)
 REG_CAPACITY = 8192
 REG_SMALL = 20_000             # the card-against-CPU checks
 REG_SMALL_ICP_ITERS = 30       # bounds the CPU side's time
-REG_SINGLE_RUN_S = 60.0        # a run longer than this is timed once
+REG_SYNC_LIMIT = 8             # synchronising calls of a compiled call
+REG_TURNS = 3                  # compiled and eager calls, in turns
+ICP_BOUND_ITERS = 8            # max_iters of the ICP run that reaches it
+EIGH_BATCH = 16384             # cuSOLVER's eigh refuses 32,768 3x3 (C11)
+# float64 operations of K1 (csrc/eig3.cu) per Jacobi sweep (three
+# rotations of 44 and the off-diagonal test) and per matrix outside the
+# sweeps (norms, sort); of K2 (csrc/kabsch3.cu) per sweep (three column
+# rotations of 70) and per matrix (norms, sort, u1, u2, u3, two
+# determinants, R); an FMA counts two
+EIG3_OPS_PER_SWEEP, EIG3_OPS_FIXED = 138, 22
+KABSCH3_OPS_PER_SWEEP, KABSCH3_OPS_FIXED = 210, 111
 CAPTURE_VOXEL = 0.005
 CAPTURE_BOX = 0.1              # +-0.1 m around the tag, every axis
 # cad_chain phase: one 1280x720 capture at the bench intrinsics: 60 mm
@@ -568,6 +601,13 @@ B5_SRC = ("repas_tpu_torch/kernels/csrc/patch_extract.cu",
           "tools/micro_perf.py:108")
 B6_SRC = ("repas_tpu_torch/kernels/csrc/patch_extract.cu",
           "tools/micro_perf.py:289")
+# K1 and K2 replace no Pallas kernel: the JAX package's linear-algebra
+# calls inside its jitted normals and RANSAC, which the port's cuSOLVER
+# calls could not be captured in (they read a status on the host)
+K1_SRC = ("repas_tpu_torch/kernels/csrc/eig3.cu",
+          "repas_tpu/cloud/normals.py:53")
+K2_SRC = ("repas_tpu_torch/kernels/csrc/kabsch3.cu",
+          "repas_tpu/cloud/fpfh.py:157")
 
 
 def record(name, src, err_ms, nbytes, ops, ops_per_s, library_note,
@@ -1459,19 +1499,318 @@ def register_staged(src, mask, tgt, tmask, seed):
     return res, float(fit), voxel, n_down, split
 
 
+def registration_steps():
+    """(name, compiled step) of every compiled step of register_clouds."""
+    from repas_tpu_torch.cloud import filters, fpfh, knn, normals
+    from repas_tpu_torch.cloud import registration as reg
+
+    return [(f"{m.__name__.rsplit('.', 1)[1]}.{n}", getattr(m, n))
+            for m, n in ((filters, "voxel_downsample"),
+                         (filters, "compact_masked"),
+                         (knn, "_grid_hash_build"),
+                         (knn, "grid_hash_query"),
+                         (knn, "grid_hash_query_knn"),
+                         (normals, "_normals_grid"),
+                         (fpfh, "fpfh_features"), (fpfh, "match_features"),
+                         (fpfh, "_ransac_from_picks"), (reg, "_icp"))]
+
+
+def graph_bytes(steps):
+    """{step name: [bytes reserved by each captured graph's private pool,
+    with its loop bodies' pools]}, from the caching allocator's
+    segments."""
+    by_pool = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is not None:
+            by_pool[tuple(pid)] = by_pool.get(tuple(pid), 0) + \
+                seg["total_size"]
+    out = {}
+    for name, step in steps:
+        out[name] = [sum(by_pool.get(tuple(i), 0) for i in
+                         [e.graph.pool()] + [p.id for p in e.pins
+                                             if isinstance(
+                                                 p, torch.cuda.MemPool)])
+                     for e in step.graphs.values()]
+    return out
+
+
+@contextlib.contextmanager
+def strict_replays():
+    """Every compiled step's replay runs with synchronizing CUDA calls
+    raising (the rest keeps the sync-debug mode it has); counts the
+    replays."""
+    from repas_tpu_torch.core import jit as jit_module
+
+    orig = jit_module.Jitted._replay
+    n = [0]
+
+    def replay(self, *args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            n[0] += 1
+
+    jit_module.Jitted._replay = replay
+    try:
+        yield n
+    finally:
+        jit_module.Jitted._replay = orig
+
+
+def syncs_of(fn):
+    """(fn()'s output, the synchronizing CUDA calls it made as sync-debug
+    warnings)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sync_warnings(caught)
+
+
+def smallest_angle(a, b, p, cam):
+    """Angles (rad) between unit vectors a and b (N,3), each first turned
+    to face `cam` from p, as _pca_normals turns a normal."""
+    a = torch.where(((a * (cam - p)).sum(1) < 0)[:, None], -a, a)
+    b = torch.where(((b * (cam - p)).sum(1) < 0)[:, None], -b, b)
+    return torch.atan2(torch.linalg.cross(a, b).norm(dim=1),
+                       (a * b).sum(1))
+
+
+def check_k1(A, p, cam):
+    """K1 against its plain version on the 1M target's covariances A: the
+    plain version (torch.linalg.eigh, 16,384 matrices a call, cuSOLVER's
+    limit) in float64 on the same values: eigenvalues within 1e-5 of the
+    largest, the smallest eigenvector within 1e-4 rad after both face the
+    camera where the two smallest eigenvalues are over 1e-6 of the trace
+    apart, elsewhere |Av - lv| within 1e-5 |A|; the same call in
+    float32 (today's): eigenvalues within 1e-5, the smallest eigenvector
+    within 1e-4 rad where the gap is over 1e-3 of the trace, and angle x
+    gap / trace within 1e-6 where it is over 1e-6 (a float32 solver errs
+    by a few ulps of |A|, and the vector moves by that over the gap).
+    Returns the record and the checks' numbers."""
+    from repas_tpu_torch.kernels.eig3 import eig3, eig3_plain
+
+    def plain(M):
+        out = [eig3_plain(M[s:s + EIGH_BATCH])
+               for s in range(0, M.shape[0], EIGH_BATCH)]
+        return (torch.cat([o[0] for o in out]),
+                torch.cat([o[1] for o in out]))
+
+    n = A.shape[0]
+    w, V = eig3(A)
+    w64, V64 = plain(A.double())
+    w32, V32 = plain(A)
+    sweeps = torch.zeros(n, dtype=torch.int32, device=A.device)
+    eig3(A, sweeps=sweeps)
+    torch.cuda.synchronize()
+    top = w64.abs().amax(dim=1) + 1e-30
+    tr = w64.sum(dim=1).abs() + 1e-30
+    gap = (w64[:, 1] - w64[:, 0]) / tr
+    apart = gap > 1e-6
+    ang64 = smallest_angle(V[:, :, 0].double(), V64[:, :, 0], p.double(),
+                           cam.double())
+    ang32 = smallest_angle(V[:, :, 0], V32[:, :, 0], p, cam).double()
+    Ad, Vd = A.double(), V.double()
+    res = (Ad @ Vd - Vd * w.double()[:, None, :]).norm(dim=1).amax(dim=1) \
+        / (Ad.norm(dim=(1, 2)) + 1e-30)
+    out = {"matrices": n, "degenerate_gap_1e-6": int((~apart).sum()),
+           "eigval_rel_err_f64": float(((w.double() - w64).abs().amax(1)
+                                        / top).max()),
+           "eigval_rel_err_f32": float(((w - w32).double().abs().amax(1)
+                                        / top).max()),
+           "eigval_abs_err_f32": float((w - w32).abs().max()),
+           "angle_max_f64": float(ang64[apart].max()),
+           "angle_max_f32_gap_1e-3": float(ang32[gap > 1e-3].max()),
+           "angle_x_gap_max_f32": float((ang32 * gap)[apart].max()),
+           "angle_max_f32_all": float(ang32.max()),
+           "residual_rel_degenerate": float(res[~apart].max())
+           if bool((~apart).any()) else 0.0,
+           "residual_rel_max": float(res.max()),
+           "sweeps": torch.bincount(sweeps).tolist()}
+    if not (out["eigval_rel_err_f64"] <= 1e-5
+            and out["eigval_rel_err_f32"] <= 1e-5
+            and out["angle_max_f64"] <= 1e-4
+            and out["angle_max_f32_gap_1e-3"] <= 1e-4
+            and out["angle_x_gap_max_f32"] <= 1e-6
+            and out["residual_rel_degenerate"] <= 1e-5):
+        raise AssertionError(f"K1 against its plain version: {out}")
+    ms = cuda_ms(lambda: eig3(A), queued=True)
+    plain_ms = cuda_ms(lambda: plain(A))
+    ops = int(sweeps.sum()) * EIG3_OPS_PER_SWEEP + n * EIG3_OPS_FIXED
+    rec = record("K1 eig3", K1_SRC, (out["eigval_abs_err_f32"], ms,
+                                     plain_ms), n * (36 + 48), ops,
+                 F64_OPS_PER_S,
+        "torch.linalg.eigh (cuSOLVER), 16,384 matrices a call: the plain "
+        "version", library_ms=plain_ms)
+    rec["replaces_note"] = ("no Pallas kernel: jnp.linalg.eigh inside the "
+                            "jitted estimate_normals_grid")
+    log({"kernel": "K1 eig3", "input_shape": [n, 3, 3], **out, "ms": ms,
+         "plain_ms": plain_ms})
+    return rec
+
+
+def check_k2(H, ransac_args):
+    """K2 against its plain version on the 8,192 triples of one RANSAC
+    draw: the plain version (torch.linalg.svd and det) in float64 on the
+    same values: R within 1e-5 where sigma2 > 1e-6 sigma1; det R = 1
+    within 1e-5 on every triple; the same in float32 (today's): R within
+    1e-5 where r = (sigma2 + sigma3) / sigma1 > 1e-2 and |dR| r within
+    1e-6 where sigma2 > 1e-6 sigma1 (a float32 SVD errs by a few ulps of
+    |H|); the hypothesis scores with K2 and with the float32 plain version
+    (equal, or the count that differ logged)."""
+    from repas_tpu_torch.cloud import fpfh
+    from repas_tpu_torch.kernels.kabsch3 import kabsch3, kabsch3_plain
+
+    n = H.shape[0]
+    R = kabsch3(H)
+    R64 = kabsch3_plain(H.double())
+    R32 = kabsch3_plain(H)
+    s = torch.linalg.svdvals(H.double())
+    sweeps = torch.zeros(n, dtype=torch.int32, device=H.device)
+    kabsch3(H, sweeps=sweeps)
+    torch.cuda.synchronize()
+    ok = s[:, 1] > 1e-6 * s[:, 0]
+    r = (s[:, 1] + s[:, 2]) / (s[:, 0] + 1e-300)
+    e64 = (R.double() - R64).abs().amax(dim=(1, 2))
+    e32 = (R - R32).double().abs().amax(dim=(1, 2))
+    det = (torch.linalg.det(R.double()) - 1).abs()
+    scores_k2 = fpfh._ransac_from_picks.fn(*ransac_args)[2]
+    saved = fpfh.kabsch3
+    fpfh.kabsch3 = kabsch3_plain
+    try:
+        scores_plain = fpfh._ransac_from_picks.fn(*ransac_args)[2]
+    finally:
+        fpfh.kabsch3 = saved
+    out = {"triples": n, "sigma2_over_1e-6": int(ok.sum()),
+           "r_over_1e-2": int((r > 1e-2).sum()),
+           "dR_max_f64": float(e64[ok].max()),
+           "dR_max_f32_r_1e-2": float(e32[r > 1e-2].max()),
+           "dR_x_r_max_f32": float((e32 * r)[ok].max()),
+           "dR_max_f32_all": float(e32.max()),
+           "det_err_max": float(det.max()),
+           "scores_differ": int((scores_k2 != scores_plain).sum()),
+           "best_equal": int(torch.argmax(scores_k2))
+           == int(torch.argmax(scores_plain)),
+           "sweeps": torch.bincount(sweeps).tolist()}
+    if not (out["dR_max_f64"] <= 1e-5 and out["dR_max_f32_r_1e-2"] <= 1e-5
+            and out["dR_x_r_max_f32"] <= 1e-6
+            and out["det_err_max"] <= 1e-5):
+        raise AssertionError(f"K2 against its plain version: {out}")
+    ms = cuda_ms(lambda: kabsch3(H), queued=True)
+    plain_ms = cuda_ms(lambda: kabsch3_plain(H))
+
+    def library():
+        U, _, Vh = torch.linalg.svd(H)
+        return torch.linalg.det(Vh.mT @ U.mT)
+
+    library_ms = cuda_ms(library)
+    ops = int(sweeps.sum()) * KABSCH3_OPS_PER_SWEEP + n * KABSCH3_OPS_FIXED
+    rec = record("K2 kabsch3", K2_SRC, (out["dR_max_f32_r_1e-2"], ms,
+                                        plain_ms), n * (36 + 36), ops,
+                 F64_OPS_PER_S, "torch.linalg.svd then torch.linalg.det "
+                 "of V U^T (cuSOLVER), the SVD and the sign the plain "
+                 "version needs", library_ms=library_ms)
+    rec["replaces_note"] = ("no Pallas kernel: jnp.linalg.svd inside the "
+                            "jitted ransac_registration")
+    log({"kernel": "K2 kabsch3", "input_shape": [n, 3, 3], **out,
+         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms})
+    return rec
+
+
 def registration_1m(dev, gpu_line):
-    """register_clouds on the bench's 1M scene on the card: gates, sync
-    count, peak memory, one timed run, the stage split, and one ICP
-    correspondence pass's device time against its host time."""
-    from repas_tpu_torch.cloud import knn, registration as reg
+    """register_clouds on the bench's 1M scene on the card, compiled: the
+    eager call (disable_jit) with K1's and K2's inputs recorded, K1 and K2
+    against their plain versions there; the warm call, which captures
+    every stage, with the launch counts set to 0 just before it (K1 and
+    K2 launched); the compiled call: gates, synchronising calls (at most
+    REG_SYNC_LIMIT, none inside a replay), peak memory, T against the
+    eager call's; a traced compiled call (K1 and K2 on the device, no
+    cuSOLVER eigh or SVD); compiled and eager seconds in turns; the stage
+    split; each graph's reserved bytes; ICP alone compiled against eager
+    (capture seconds, graph nodes, also run to max_iters); one ICP
+    correspondence pass's device and host ms. Returns K1's and K2's
+    records."""
+    from repas_tpu_torch.cloud import fpfh, knn, normals
+    from repas_tpu_torch.cloud import registration as reg
+    from repas_tpu_torch.core.jit import disable_jit
+    from repas_tpu_torch.core.transforms import make_T
+    from repas_tpu_torch.kernels import _build
 
     src_np, tgt_np, R, t = bumpy_scene(REG_N)
     src = torch.from_numpy(src_np).to(dev)
     tgt = torch.from_numpy(tgt_np).to(dev)
     mask = torch.ones(REG_N, dtype=torch.bool, device=dev)
+    steps = registration_steps()
+    for _, step in steps:
+        step.clear()
 
-    # the first run: register_clouds itself, its synchronising calls
-    # counted, n_down read off its global_register_fpfh
+    def call():
+        return reg.register_clouds(src, mask, tgt, mask, seed=REG_SEED)
+
+    def eager():
+        with disable_jit():
+            return call()
+
+    # the eager call, K1's and K2's inputs and RANSAC's step's recorded
+    seen = {"eig3": [], "kabsch3": [], "ransac": []}
+    saved = (normals.eig3, fpfh.kabsch3, fpfh._ransac_from_picks)
+
+    def eig3_rec(A, *a, **k):
+        seen["eig3"].append(A.clone())
+        return saved[0](A, *a, **k)
+
+    def kabsch3_rec(H, *a, **k):
+        seen["kabsch3"].append(H.clone())
+        return saved[1](H, *a, **k)
+
+    def ransac_rec(*a):
+        seen["ransac"].append(a)
+        return saved[2](*a)
+
+    normals.eig3, fpfh.kabsch3, fpfh._ransac_from_picks = \
+        eig3_rec, kabsch3_rec, ransac_rec
+    try:
+        t0 = time.perf_counter()
+        (res_e, fit_e, voxel), syncs_e = syncs_of(eager)
+        eager_first_s = time.perf_counter() - t0
+    finally:
+        normals.eig3, fpfh.kabsch3, fpfh._ransac_from_picks = saved
+    A = torch.cat(seen["eig3"][2:])               # the 1M target's normals
+    if A.shape[0] != REG_N or len(seen["kabsch3"]) != 1:
+        raise AssertionError(f"eager register_clouds: K1 saw {A.shape[0]} "
+                             f"target matrices, K2 {len(seen['kabsch3'])} "
+                             "calls")
+    records = [check_k1(A, tgt, torch.zeros(3, device=dev)),
+               check_k2(seen["kabsch3"][0], seen["ransac"][0])]
+    del A, seen
+
+    # the warm call captures every stage; the counts see its warm-up and
+    # its capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    capture_run_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    reserved1 = torch.cuda.memory_reserved(dev)
+    if counts["eig3"] < 1 or counts["kabsch3"] < 1:
+        raise AssertionError(f"register_clouds launched no K1 or K2: "
+                             f"{counts}")
+    records[0]["launches"] = counts["eig3"]
+    records[1]["launches"] = counts["kabsch3"]
+
+    # the compiled call: a replay of every stage
     n_down = []
     orig = reg.global_register_fpfh
 
@@ -1481,35 +1820,37 @@ def registration_1m(dev, gpu_line):
         return out
 
     torch.cuda.reset_peak_memory_stats(dev)
+    graphs = sum(len(step.graphs) for _, step in steps)
     reg.global_register_fpfh = recording
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                t0 = time.perf_counter()
-                res, fit_g, voxel = reg.register_clouds(src, mask, tgt, mask,
-                                                        seed=REG_SEED)
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t0
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        with strict_replays() as replays:
+            t0 = time.perf_counter()
+            (res, fit_g, voxel), syncs = syncs_of(call)
+            first_s = time.perf_counter() - t0
     finally:
         reg.global_register_fpfh = orig
-    syncs = sync_warnings(caught)
     peak = torch.cuda.max_memory_allocated(dev)
-    t_err, r_err = pose_error(res.T.cpu().numpy(), R, t)
+    Tc, Te = res.T.cpu().numpy(), res_e.T.cpu().numpy()
+    t_err, r_err = pose_error(Tc, R, t)
     fitness = float(res.fitness)
-    out = {"phase": "registration", "points": REG_N, "voxel_m": voxel,
-           "n_down": n_down[0], "capacity": REG_CAPACITY,
-           "ransac_fitness": fit_g, "icp_fitness": fitness,
-           "icp_rmse_m": float(res.inlier_rmse),
-           "icp_iterations": res.iterations, "t_err_mm": t_err,
-           "R_err_deg": r_err, "first_run_s": first_s,
-           "sync_calls": len(syncs),
-           "sync_messages": sorted(set(syncs))[:4],
-           "peak_mem_bytes": peak, "gpu": gpu_line}
-    log(out)
+    vs_eager = {"t_m": float(np.abs(Tc[:3, 3] - Te[:3, 3]).max()),
+                "R_deg": angle_deg(Tc[:3, :3], Te[:3, :3]),
+                "iterations": [res.iterations, res_e.iterations],
+                "ransac_fitness": [fit_g, fit_e]}
+    log({"phase": "registration", "points": REG_N, "voxel_m": voxel,
+         "n_down": n_down[0], "capacity": REG_CAPACITY,
+         "ransac_fitness": fit_g, "icp_fitness": fitness,
+         "icp_rmse_m": float(res.inlier_rmse),
+         "icp_iterations": res.iterations, "t_err_mm": t_err,
+         "R_err_deg": r_err, "compiled_s": first_s,
+         "capture_run_s": capture_run_s, "eager_first_s": eager_first_s,
+         "sync_calls": len(syncs), "sync_messages": sorted(set(syncs))[:8],
+         "sync_calls_eager": len(syncs_e), "replays": replays[0],
+         "launches_capture_run": {k: counts[k] for k in ("eig3",
+                                                         "kabsch3")},
+         "graphs": graphs,
+         "vs_eager": vs_eager, "peak_mem_bytes": peak,
+         "graphs_reserved_bytes": reserved1 - reserved0, "gpu": gpu_line})
     # the bench's own gate, then this port's
     if fitness < 0.3 or t_err > 20.0:
         raise AssertionError(f"registration fails the bench gate: fitness "
@@ -1519,24 +1860,88 @@ def registration_1m(dev, gpu_line):
         raise AssertionError(f"registration: fitness {fitness}, t error "
                              f"{t_err} mm, R error {r_err} deg, n_down "
                              f"{n_down[0]}")
-    if first_s > REG_SINGLE_RUN_S:
-        log({"phase": "registration_timing", "single_run": True,
-             "wall_s": first_s, "note": "the first run took over "
-             f"{REG_SINGLE_RUN_S} s: timed once, not repeated",
-             "gpu": gpu_line})
-        return
+    captured = sum(len(step.graphs) for _, step in steps) - graphs
+    if len(syncs) > REG_SYNC_LIMIT or captured or not replays[0]:
+        raise AssertionError(f"compiled registration: {len(syncs)} "
+                             f"synchronising calls, {replays[0]} replays, "
+                             f"{captured} new graphs")
+    if vs_eager["t_m"] > 1e-5 or vs_eager["R_deg"] > 1e-3:
+        raise AssertionError(f"compiled registration vs eager: {vs_eager}")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reg.register_clouds(src, mask, tgt, mask, seed=REG_SEED)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    # a traced compiled call: K1 and K2 on the device, no cuSOLVER eigh
+    # or SVD
+    _, wrappers, _, names = traced(call)
+    device = {"eig3": sum("eig3" in n for n in names),
+              "kabsch3": sum("kabsch3" in n for n in names)}
+    solver = sorted({n[:60] for n in names
+                     if re.search(r"syev|gesvd|heev", n, re.I)})
+    prof = device_profile(call, top=8)
+    if any(wrappers.values()) or not all(device.values()) or solver:
+        raise AssertionError(f"traced compiled registration: wrappers "
+                             f"{wrappers}, K1/K2 on the device {device}, "
+                             f"solver kernels {solver}")
+    records[0]["graph_launches_registration"] = device["eig3"]
+    records[1]["graph_launches_registration"] = device["kabsch3"]
+
+    wall = in_turns({"compiled": call, "eager": eager}, REG_TURNS)
     res2, fit2, _, n_down2, split = register_staged(src, mask, tgt, mask,
                                                     REG_SEED)
     t_err2, r_err2 = pose_error(res2.T.cpu().numpy(), R, t)
     if t_err2 >= 1.0 or r_err2 >= 0.05 or float(res2.fitness) <= 0.5:
         raise AssertionError(f"staged registration: t error {t_err2} mm, R "
                              f"error {r_err2} deg")
+    pools = graph_bytes(steps)
+
+    # ICP alone from one T_init, compiled against eager: its capture, its
+    # graph's nodes; then with masked source points (C9: NaN RMSE) it
+    # runs to max_iters
+    nrm_t, _ = normals.estimate_normals_grid(tgt, mask, k=16,
+                                             radius=2.0 * voxel)
+    T_init = make_T(rotation(np.array(REG_RV) + [0.01, -0.01, 0.005]),
+                    torch.from_numpy(t + np.float32([0.004, -0.003, 0.002]))
+                    ).numpy()
+    smask = mask.clone()
+    smask[::100] = False
+    icp = {}
+    for name, m, iters in (("converging", mask, 100),
+                           ("max_iters", smask, ICP_BOUND_ITERS)):
+        def one(m=m, iters=iters):
+            return reg.icp_point_to_plane(src, m, tgt, mask, nrm_t,
+                                          max_corr_dist=1.5 * voxel,
+                                          max_iters=iters, T_init=T_init)
+
+        reg._icp.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        entry = next(iter(reg._icp.graphs.values()))
+        got = one()
+        with disable_jit():
+            want = one()
+
+        def eager_one(one=one):
+            with disable_jit():
+                return one()
+
+        ms = in_turns({"compiled": one, "eager": eager_one}, 1)
+        icp[name] = {"iterations": [got.iterations, want.iterations],
+                     "t_m": float((got.T - want.T)[:3, 3].abs().max()),
+                     "rmse": [float(got.inlier_rmse),
+                              float(want.inlier_rmse)],
+                     "capture_s": cap_s, "ms": ms,
+                     "graph_nodes": entry.nodes,
+                     "while_body_nodes": entry.while_nodes,
+                     "pool_bytes": graph_bytes([("icp", reg._icp)])["icp"]}
+        if got.iterations != want.iterations or icp[name]["t_m"] > 1e-6 \
+                or len(entry.while_nodes or []) != 1:
+            raise AssertionError(f"compiled ICP vs eager ({name}): "
+                                 f"{icp[name]}")
+    if icp["max_iters"]["iterations"][0] != ICP_BOUND_ITERS or \
+            not np.isnan(icp["max_iters"]["rmse"][0]):
+        raise AssertionError(f"ICP with masked points: {icp['max_iters']}")
+
     # one ICP correspondence pass (both grid levels over the 1M moved
     # source points): the device's time alone (queued behind a spin
     # kernel) against the host clock around it
@@ -1549,15 +1954,21 @@ def registration_1m(dev, gpu_line):
 
     query_host_ms = float(np.median(host_ms(query, 3)))
     query_dev_ms = cuda_ms(query, iters=3, warmup=1, queued=True)
-    log({"phase": "registration_timing", "single_run": False,
-         "wall_s": wall_s, "staged_wall_s": sum(split.values()),
-         "split_s": split, "icp_iterations": res2.iterations,
+    log({"phase": "registration_timing",
+         "wall_s": {k: float(np.median(v)) / 1e3 for k, v in wall.items()},
+         "wall_s_all": {k: [x / 1e3 for x in v] for k, v in wall.items()},
+         "staged_wall_s": sum(split.values()), "split_s": split,
+         "icp_iterations": res2.iterations,
          "icp_ms_per_iteration": split["icp"] * 1e3 / max(res2.iterations,
                                                           1),
          "staged_n_down": n_down2, "staged_ransac_fitness": fit2,
-         "staged_t_err_mm": t_err2, "staged_R_err_deg": r_err2,
+         "traced_kernels": prof["kernels"],
+         "traced_device_ms": prof["device_ms"], "traced_top": prof["top"],
+         "device_launches_K1_K2": device,
+         "graph_reserved_bytes": pools, "icp": icp,
          "icp_query_host_ms": query_host_ms,
          "icp_query_device_ms": query_dev_ms, "gpu": gpu_line})
+    return records
 
 
 def registration_vs_cpu(dev):
@@ -1672,14 +2083,60 @@ def capture_phase(dev, gpu_line):
     Kt = torch.from_numpy(K)
     rgb_d, depth_d, K_d = rgb.to(dev), depth.to(dev), Kt.to(dev)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    cloud = create_masked_pointcloud(rgb_d, depth_d, K_d,
-                                     voxel=CAPTURE_VOXEL, with_normals=True)
-    torch.cuda.synchronize()
-    gen_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated(dev)
+    # compiled: three steps (core.jit) with the samples drawn between
+    # them; the first call captures them
+    from repas_tpu_torch.cloud import filters, generate, normals
+    from repas_tpu_torch.core.jit import disable_jit
+
+    for step in (generate._back_project, filters._outlier_mask_from_sample,
+                 normals._normals_step):
+        step.clear()
+
+    def gen():
+        return create_masked_pointcloud(rgb_d, depth_d, K_d,
+                                        voxel=CAPTURE_VOXEL,
+                                        with_normals=True)
+
+    def gen_eager():
+        with disable_jit():
+            return gen()
+
+    from repas_tpu_torch.kernels import _build
+
+    peaks, ms = {}, {}
+    _build.reset_launches()
+    for name, fn in (("capture", gen), ("compiled", gen),
+                     ("eager", gen_eager)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        peaks[name] = torch.cuda.max_memory_allocated(dev)
+        if name == "compiled":
+            cloud = out
+    eager = out
+    gen_ms, peak = ms["compiled"], max(peaks.values())
+    ve = eager.valid
+    both = ve & cloud.valid
+    vs_eager = {"valid_differ": int((cloud.valid != ve).sum()),
+                "points_max_abs_m": float((cloud.points - eager.points)[
+                    both].abs().max()),
+                "colors_max_abs": float((cloud.colors - eager.colors)[
+                    both].abs().max()),
+                "normals_max_abs": float((cloud.normals - eager.normals)[
+                    both].abs().max())}
+    log({"phase": "capture_720p_compiled", "ms": ms, "peak_mem_bytes": peaks,
+         "vs_eager": vs_eager, "valid": int(ve.sum()),
+         "launches": {k: v for k, v in _build.launches.items() if v},
+         "gpu": gpu_line})
+    if vs_eager["valid_differ"] > 1e-3 * int(ve.sum()) or \
+            vs_eager["points_max_abs_m"] > 1e-6 or \
+            vs_eager["colors_max_abs"] > 1e-6 or \
+            vs_eager["normals_max_abs"] > 1e-4:
+        raise AssertionError(f"compiled create_masked_pointcloud vs eager: "
+                             f"{vs_eager}")
     n_valid = int(cloud.valid.sum())
     # a valid point without 3 neighbours within 2 cm keeps a zero normal;
     # the others face the camera across the plane z = 0.45 m
@@ -1748,10 +2205,11 @@ def capture_phase(dev, gpu_line):
 
 def registration_phase(dev, gpu_line):
     """The point-cloud registration path and the capture side on the
-    card (no kernel of its own)."""
-    registration_1m(dev, gpu_line)
+    card, compiled; returns the records of its kernels, K1 and K2."""
+    records = registration_1m(dev, gpu_line)
     registration_vs_cpu(dev)
     capture_phase(dev, gpu_line)
+    return records
 
 
 # --- cad_chain: the CAD-placement and reconstruction path ------------------
@@ -4145,7 +4603,7 @@ def main(argv=None) -> int:
         with eager_steps(*ladder_steps()):
             records += robust_phase(dev, gpu_line)
         records += calibrated_tracking_phase(dev, gpu_line, records)
-        registration_phase(dev, gpu_line)
+        records += registration_phase(dev, gpu_line)
         records += cad_chain_phase(dev, gpu_line, args.keep)
         counts = canopy_calib_eval_phase(dev, gpu_line)
         apps_records, apps_counts, apps_graph = apps_stream_phase(dev,
@@ -4157,7 +4615,8 @@ def main(argv=None) -> int:
         compiled_graph = compiled_phase(dev, gpu_line)
         bench_counts, bench_graph = bench_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
-            "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact"}
+            "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact",
+            "K1": "eig3", "K2": "kabsch3"}
     for rec in records:
         key = keys[rec["name"][:2]]
         rec["launches_canopy_calib_eval"] = counts[key]

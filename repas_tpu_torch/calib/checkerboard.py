@@ -31,7 +31,6 @@ are equal (tests/test_torch_calib.py).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
@@ -40,6 +39,7 @@ import torch.autograd.forward_ad as fwAD
 
 from repas_tpu_torch.core.device import host_data_device
 from repas_tpu_torch.core.jit import jit
+from repas_tpu_torch.core.precision import cusolver
 from repas_tpu_torch.core.transforms import rodrigues, rodrigues_inv
 from repas_tpu_torch.kernels.image import (_pad_edge, _window2d,
                                            bilinear_sample, gaussian_blur,
@@ -310,21 +310,6 @@ def _jacobian(fn, p: torch.Tensor) -> torch.Tensor:
     return J.T
 
 
-@contextlib.contextmanager
-def _cusolver(dev: torch.device):
-    """cuSOLVER for the linear algebra on a CUDA device: the default
-    heuristic may route a small solve to MAGMA, which synchronises."""
-    if dev.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
-
-
 @functools.partial(jit, static_argnames=("n_dist",))
 def _lm_step(p: torch.Tensor, lam: torch.Tensor, obj: torch.Tensor,
              img: torch.Tensor, n_dist: int):
@@ -336,7 +321,7 @@ def _lm_step(p: torch.Tensor, lam: torch.Tensor, obj: torch.Tensor,
         return _calib_residuals(q, obj, img, n_dist)
 
     eye = torch.eye(p.shape[0], dtype=torch.float32, device=p.device)
-    with _cusolver(p.device):
+    with cusolver(p.device):
         r = residuals(p)
         J = _jacobian(residuals, p)
         JTJ = J.T @ J

@@ -4,13 +4,26 @@ statistical outlier removal.
 Port of ``repas_tpu/cloud/filters.py``. Every filter works on a
 fixed-shape (N,3) cloud with a validity mask: removing a point clears its
 mask bit, it never reshapes.
+
+``voxel_downsample`` (static `buckets`, the voxel a 0-d tensor),
+``compact_masked`` (static `capacity`) and the outlier filter's step are
+compiled on the card (``core.jit``). ``statistical_outlier_mask`` draws
+its sample before its step, from a seeded ``torch.Generator``, which a
+graph could not reseed.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
-from repas_tpu_torch.cloud.knn import _scalar, _sqnorm
+from repas_tpu_torch.cloud.knn import _chunks, _scalar, _sqnorm
+from repas_tpu_torch.core.jit import jit
+
+# rows of the outlier filter's (rows, sample) distance block: 256 MB at
+# the default sample of 2,048
+SAMPLE_ROWS = 32768
 
 
 def radius_mask(pts: torch.Tensor, mask: torch.Tensor,
@@ -21,6 +34,8 @@ def radius_mask(pts: torch.Tensor, mask: torch.Tensor,
     return mask & (_sqnorm(pts - o) < max_dist * max_dist)
 
 
+@functools.partial(jit, static_argnames=("buckets",),
+                   scalar_argnames=("voxel",))
 def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, voxel: float,
                      colors: torch.Tensor | None = None,
                      normals: torch.Tensor | None = None,
@@ -82,6 +97,7 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, voxel: float,
     return out_pts, out_cols, out_nrm, is_rep
 
 
+@functools.partial(jit, static_argnames=("capacity",))
 def compact_masked(pts: torch.Tensor, mask: torch.Tensor, capacity: int):
     """Pack the valid rows into the first `capacity` slots, in their order
     (a stable sort on the mask; on the device, no host sync).
@@ -121,20 +137,30 @@ def _sample_d2(pts: torch.Tensor, ref: torch.Tensor, ref_ok: torch.Tensor
     return d2.masked_fill_(~ref_ok[None, :], torch.inf)
 
 
+@functools.partial(jit, static_argnames=("nb_neighbors", "rows"),
+                   scalar_argnames=("std_ratio",))
 def _outlier_mask_from_sample(pts: torch.Tensor, mask: torch.Tensor,
                               idx: torch.Tensor, nb_neighbors: int,
-                              std_ratio: float) -> torch.Tensor:
-    """statistical_outlier_mask against the sample points `idx`."""
-    d2 = _sample_d2(pts, pts[idx], mask[idx])
+                              std_ratio: float, rows: int = SAMPLE_ROWS
+                              ) -> torch.Tensor:
+    """statistical_outlier_mask against the sample points `idx`, the
+    neighbour distances `rows` points at a time (each row's depend on
+    that row alone)."""
+    ref = pts[idx]
+    ref_ok = mask[idx]
     k = min(nb_neighbors + 1, idx.shape[0])            # +1: self may appear
-    top = torch.topk(d2, k, dim=1, largest=False).values
-    del d2
-    dists = torch.sqrt(torch.clamp(top, min=0.0))     # (N,k) ascending
-    # jnp.mean in XLA: a sum in column order, times the f32 reciprocal
-    s = dists[:, 1]
-    for j in range(2, k):
-        s = s + dists[:, j]
-    mean_d = s * float(np.float32(1.0) / np.float32(max(k - 1, 1)))
+    mean_d = torch.empty(pts.shape[0], dtype=pts.dtype, device=pts.device)
+    for r0, r1 in _chunks(pts.shape[0], rows):
+        d2 = _sample_d2(pts[r0:r1], ref, ref_ok)
+        top = torch.topk(d2, k, dim=1, largest=False).values
+        del d2
+        dists = torch.sqrt(torch.clamp(top, min=0.0))  # (rows,k) ascending
+        # jnp.mean in XLA: a sum in column order, times the f32 reciprocal
+        s = dists[:, 1]
+        for j in range(2, k):
+            s = s + dists[:, j]
+        mean_d[r0:r1] = s * float(np.float32(1.0)
+                                  / np.float32(max(k - 1, 1)))
     n_ok = torch.clamp(torch.sum(mask.to(torch.int32)), min=1)
     mu = torch.sum(torch.where(mask, mean_d, 0.0)) / n_ok
     resid = mean_d - mu
@@ -151,8 +177,8 @@ def statistical_outlier_mask(pts: torch.Tensor, mask: torch.Tensor,
     drop points whose mean distance to their `nb_neighbors` nearest
     neighbours exceeds mean + std_ratio * std. Neighbours are searched
     among `sample` points drawn without replacement from the valid ones
-    (one (N, sample) distance matrix), with the generator seeded by `key`
-    (default 0)."""
+    (the (N, sample) distances SAMPLE_ROWS rows at a time), with the
+    generator seeded by `key` (default 0)."""
     gen = _generator(pts.device, 0 if key is None else key)
     idx = _choice(mask, min(sample, pts.shape[0]), False, gen)
     return _outlier_mask_from_sample(pts, mask, idx, nb_neighbors, std_ratio)

@@ -8,11 +8,20 @@ registration_ransac_based_on_feature_matching):
     neighbour-weighted sum. Neighbours from the grid-hash k-NN.
   * Matching: feature-distance matmuls and argmin, chunked over source
     rows so the (N,M) distance matrix never exists whole.
-  * RANSAC: all 3-point hypotheses at once: one batched Kabsch SVD,
-    edge-length and distance checkers, inlier counts.
+  * RANSAC: all 3-point hypotheses at once: one batched Kabsch solve
+    (kernel K2, ``kernels/kabsch3.py``, on the card; ``torch.linalg.svd``
+    on the CPU), edge-length and distance checkers, inlier counts.
+
+``fpfh_features``, ``match_features`` and RANSAC's scoring step are
+compiled on the card (``core.jit``, as the reference jits them), with
+the reference's static arguments and the radius and thresholds as 0-d
+tensors. ``ransac_registration`` draws its hypotheses before its step,
+from a seeded ``torch.Generator``, which a graph could not reseed (the
+reference's step takes its PRNG key as an input, the same split).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -20,7 +29,9 @@ import torch
 
 from repas_tpu_torch.cloud.filters import _choice, _generator
 from repas_tpu_torch.cloud.knn import _chunks, _sqnorm, knn_neighbors
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import make_T
+from repas_tpu_torch.kernels.kabsch3 import kabsch3
 
 _THIRD = float(np.float32(1.0) / np.float32(3.0))
 
@@ -40,6 +51,9 @@ def _hist(x: torch.Tensor, within: torch.Tensor, lo: float, hi: float,
     return out.scatter_add_(1, b, within.to(torch.float32))
 
 
+@functools.partial(jit, static_argnames=("k", "bins", "dims", "slots",
+                                         "chunk"),
+                   scalar_argnames=("radius",))
 def fpfh_features(pts: torch.Tensor, normals: torch.Tensor,
                   mask: torch.Tensor, radius: float,
                   k: int = 32, bins: int = 11,
@@ -90,6 +104,7 @@ def fpfh_features(pts: torch.Tensor, normals: torch.Tensor,
     return torch.where(mask[:, None], fpfh, 0.0)
 
 
+@functools.partial(jit, static_argnames=("chunk",))
 def match_features(feat_src: torch.Tensor, src_mask: torch.Tensor,
                    feat_tgt: torch.Tensor, tgt_mask: torch.Tensor,
                    chunk: int = 1024):
@@ -113,21 +128,20 @@ def match_features(feat_src: torch.Tensor, src_mask: torch.Tensor,
 
 
 def _kabsch(P: torch.Tensor, Q: torch.Tensor):
-    """Rigid transforms aligning point triples P (...,3,3) onto Q via SVD
-    (one batched torch.linalg.svd). The centroids are XLA's mean: a sum in
-    order times float32(1/3). Returns (R (...,3,3), t (...,3))."""
+    """Rigid transforms aligning point triples P (...,3,3) onto Q from the
+    SVD of their cross-covariance H (``kernels.kabsch3``: kernel K2 on the
+    card, one batched torch.linalg.svd on the CPU). The centroids are
+    XLA's mean: a sum in order times float32(1/3). Returns (R (...,3,3),
+    t (...,3))."""
     cp = ((P[..., 0, :] + P[..., 1, :]) + P[..., 2, :]) * _THIRD
     cq = ((Q[..., 0, :] + Q[..., 1, :]) + Q[..., 2, :]) * _THIRD
     H = (P - cp[..., None, :]).mT @ (Q - cq[..., None, :])
-    U, _, Vh = torch.linalg.svd(H)
-    V = Vh.mT
-    d = torch.sign(torch.linalg.det(V @ U.mT))
-    ones = torch.ones_like(d)
-    R = (V * torch.stack([ones, ones, d], dim=-1)[..., None, :]) @ U.mT
+    R = kabsch3(H.reshape(-1, 3, 3)).reshape(H.shape)
     t = cq - (R @ cp[..., None])[..., 0]
     return R, t
 
 
+@functools.partial(jit, scalar_argnames=("dist_thresh", "edge_check"))
 def _ransac_from_picks(src, src_mask, tgt, tgt_mask, corr, dist_thresh,
                        edge_check, picks, ev):
     """ransac_registration's scoring of the hypotheses `picks` (H,3) on

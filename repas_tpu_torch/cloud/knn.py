@@ -7,15 +7,21 @@ the 3x3x3 neighbourhood's candidates. Every shape is static; queries run
 in chunks of `chunk` rows so the (chunk, 27*slots, 3) gather stays
 bounded at any query count. Each row's result depends on that row alone,
 so results do not depend on the chunk.
+
+``grid_hash_build``, ``grid_hash_query`` and ``grid_hash_query_knn`` are
+compiled steps on the card (``core.jit``, as the reference jits them):
+`dims`, `slots`, `k` and `chunk` static, the cell size a 0-d tensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repas_tpu_torch.core.consts import const
+from repas_tpu_torch.core.jit import jit
 
 # the 3x3x3 neighbourhood offsets, dx-major, so the candidate column order
 # (27 offsets x slots) is the reference's
@@ -65,9 +71,15 @@ def grid_hash_build(pts: torch.Tensor, mask: torch.Tensor, origin, cell,
                     dims: tuple, slots: int = 4) -> GridHash:
     """Bin masked points into the grid. Up to `slots` points kept per cell
     (the highest indices, one per pass; the others are dropped, as the
-    reference does)."""
+    reference does). `origin` (3,) may lie on the host."""
+    origin = torch.as_tensor(origin, dtype=torch.float32).to(pts.device)
+    return _grid_hash_build(pts, mask, origin, cell, dims, slots)
+
+
+@functools.partial(jit, static_argnames=("dims", "slots"),
+                   scalar_argnames=("cell",))
+def _grid_hash_build(pts, mask, origin, cell, dims, slots) -> GridHash:
     dev = pts.device
-    origin = torch.as_tensor(origin, dtype=torch.float32).to(dev)
     cell = _scalar(cell, dev)
     n_cells = dims[0] * dims[1] * dims[2]
     cid = _cell_ids(pts, origin, cell, dims)
@@ -117,6 +129,7 @@ def _chunks(n: int, chunk: int):
     return [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
 
 
+@functools.partial(jit, static_argnames=("dims", "chunk"))
 def grid_hash_query(gh: GridHash, target_pts: torch.Tensor,
                     query_pts: torch.Tensor, query_mask: torch.Tensor,
                     dims: tuple, chunk: int = 16384):
@@ -190,6 +203,7 @@ def nearest_neighbors(target_pts: torch.Tensor, target_mask: torch.Tensor,
     return grid_hash_query(gh, target_pts, query_pts, query_mask, dims)
 
 
+@functools.partial(jit, static_argnames=("dims", "k", "chunk"))
 def grid_hash_query_knn(gh: GridHash, target_pts: torch.Tensor,
                         query_pts: torch.Tensor, query_mask: torch.Tensor,
                         dims: tuple, k: int, chunk: int = 8192):

@@ -3,21 +3,29 @@ estimate_normals + orient_normals_towards_camera_location).
 
 Port of ``repas_tpu/cloud/normals.py``. Each normal is the eigenvector of
 the smallest eigenvalue of its neighbourhood's covariance (a batched 3x3
-``torch.linalg.eigh``), its sign chosen to face the camera.
+eigh: kernel K1, ``kernels/eig3.py``, on the card; ``torch.linalg.eigh``
+on the CPU), its sign chosen to face the camera.
+
+``estimate_normals_grid`` and ``estimate_normals``' step are compiled on
+the card (``core.jit``, as the reference jits them): `k`, `dims`,
+`slots`, `sample` and the chunks static, the radius a 0-d tensor.
+``estimate_normals`` draws its sample before its step, from a seeded
+``torch.Generator``, which a graph could not reseed.
 """
 from __future__ import annotations
 
-import numpy as np
+import functools
+
 import torch
 
 from repas_tpu_torch.cloud.filters import _choice, _generator, _sample_d2
-from repas_tpu_torch.cloud.knn import _chunks, knn_neighbors
+from repas_tpu_torch.cloud.knn import _chunks, _scalar, knn_neighbors
+from repas_tpu_torch.core.jit import jit
+from repas_tpu_torch.kernels.eig3 import eig3
 
-# torch.linalg.eigh on the card runs cusolverDnXsyevBatched, which refuses
-# a batch of 32,768 3x3 matrices or more (CUSOLVER_STATUS_INVALID_VALUE;
-# torch 2.11, CUDA 12.8, H100). Each matrix is solved alone, so splitting
-# the batch changes no result.
-_EIGH_BATCH = 16384
+# rows of estimate_normals' (rows, sample) distance block: 512 MB at the
+# default sample of 4,096 (the whole 720p frame at once is 15 GB)
+SAMPLE_ROWS = 32768
 
 
 def _camera(camera, pts: torch.Tensor) -> torch.Tensor:
@@ -38,8 +46,7 @@ def _pca_normals(p, nbr, within, cam):
     tr = (cov[:, 0, 0] + cov[:, 1, 1] + cov[:, 2, 2])[:, None, None]
     eye = torch.eye(3, dtype=p.dtype, device=p.device)
     A = cov + 1e-12 * (tr + 1e-30) * eye
-    nrm = torch.cat([torch.linalg.eigh(A[s:e])[1][:, :, 0]
-                     for s, e in _chunks(A.shape[0], _EIGH_BATCH)])
+    nrm = eig3(A)[1][:, :, 0]
     flip = torch.sum(nrm * (cam - p), dim=1) < 0
     return torch.where(flip[:, None], -nrm, nrm)
 
@@ -53,7 +60,13 @@ def estimate_normals_grid(pts: torch.Tensor, mask: torch.Tensor, k: int = 16,
 
     Returns (normals (N,3), ok (N,) bool): ok needs 3 neighbours within
     `radius`."""
-    cam = _camera(camera, pts)
+    return _normals_grid(pts, mask, k, radius, dims, slots, chunk,
+                         _camera(camera, pts))
+
+
+@functools.partial(jit, static_argnames=("k", "dims", "slots", "chunk"),
+                   scalar_argnames=("radius",))
+def _normals_grid(pts, mask, k, radius, dims, slots, chunk, cam):
     idx, dist = knn_neighbors(pts, mask, radius, k + 1, dims=dims,
                               slots=slots)
     nn = idx[:, 1:].to(torch.int64)              # drop self
@@ -70,18 +83,35 @@ def estimate_normals_grid(pts: torch.Tensor, mask: torch.Tensor, k: int = 16,
 
 
 def _normals_from_sample(pts: torch.Tensor, mask: torch.Tensor,
-                         idx: torch.Tensor, k: int, radius: float, camera
+                         idx: torch.Tensor, k: int, radius, camera=None,
+                         rows: int = SAMPLE_ROWS
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """estimate_normals against the sample points `idx`."""
+    """estimate_normals against the sample points `idx`, `rows` points at
+    a time (each row's top-k and PCA depend on that row alone). `camera`
+    may lie on the host."""
+    return _normals_step(pts, mask, idx, k, radius, _camera(camera, pts),
+                         rows)
+
+
+@functools.partial(jit, static_argnames=("k", "rows"),
+                   scalar_argnames=("radius",))
+def _normals_step(pts, mask, idx, k, radius, cam, rows):
     ref = pts[idx]
-    d2 = _sample_d2(pts, ref, mask[idx])
-    top = torch.topk(d2, k, dim=1, largest=False)
-    del d2
+    ref_ok = mask[idx]
     # the reference squares the float32 radius in float32
-    r32 = np.float32(radius)
-    within = top.values <= float(r32 * r32)
-    nrm = _pca_normals(pts, ref[top.indices], within, _camera(camera, pts))
-    ok = mask & (torch.sum(within, dim=1) >= 3)
+    r = _scalar(radius, pts.device)
+    r2 = r * r
+    nrm = torch.empty_like(pts)
+    n_within = torch.empty(pts.shape[0], dtype=torch.int64,
+                           device=pts.device)
+    for s, e in _chunks(pts.shape[0], rows):
+        d2 = _sample_d2(pts[s:e], ref, ref_ok)
+        top = torch.topk(d2, k, dim=1, largest=False)
+        del d2
+        within = top.values <= r2
+        nrm[s:e] = _pca_normals(pts[s:e], ref[top.indices], within, cam)
+        n_within[s:e] = torch.sum(within, dim=1)
+    ok = mask & (n_within >= 3)
     return torch.where(ok[:, None], nrm, 0.0), ok
 
 
@@ -91,8 +121,9 @@ def estimate_normals(pts: torch.Tensor, mask: torch.Tensor, k: int = 30,
     """Per-point normals from PCA of the k nearest neighbours within
     `radius` (Open3D hybrid search semantics), oriented toward `camera`
     (default: the origin). Neighbours are searched among `sample` points
-    drawn without replacement from the valid ones (one (N, sample)
-    distance matrix), with the generator seeded by `key` (default 1).
+    drawn without replacement from the valid ones (the (N, sample)
+    distances SAMPLE_ROWS rows at a time), with the generator seeded by
+    `key` (default 1).
 
     Returns (normals (N,3), ok (N,) bool)."""
     gen = _generator(pts.device, 1 if key is None else key)

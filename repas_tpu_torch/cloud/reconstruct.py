@@ -20,11 +20,14 @@ agrees with the reference within rounding, not bit for bit.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from repas_tpu_torch.cloud.knn import _scalar
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.io.ply import PointCloud, TriangleMesh
 
 
@@ -32,12 +35,19 @@ def poisson_indicator_grid(pts: torch.Tensor, normals: torch.Tensor,
                            mask: torch.Tensor, lo, cell, dim: int = 128
                            ) -> torch.Tensor:
     """Steps 1-2: the (dim, dim, dim) indicator (chi) grid, minus its iso
-    level, from oriented points, on the points' device."""
+    level, from oriented points, on the points' device (a compiled step
+    on the card, `dim` static, as the reference jits it). `lo` (3,) may
+    lie on the host."""
+    lo = torch.as_tensor(lo, dtype=torch.float32).to(pts.device)
+    return _poisson(pts, normals, mask, lo, cell, dim)
+
+
+@functools.partial(jit, static_argnames=("dim",), scalar_argnames=("cell",))
+def _poisson(pts, normals, mask, lo, cell, dim):
     dev = pts.device
     f32 = torch.float32
     pts = pts.to(f32)
     normals = normals.to(f32)
-    lo = torch.as_tensor(lo, dtype=f32).to(dev)
     ijk = (pts - lo) / _scalar(cell, dev)
     base = torch.floor(ijk).to(torch.int32)
     frac = ijk - base

@@ -1,15 +1,22 @@
 """Point-to-plane ICP and the two-stage registration recipe.
 
-Port of ``repas_tpu/cloud/registration.py``. The reference's
-``lax.while_loop`` becomes a Python loop over a step that stays on the
-device: grid-hash 1-NN correspondences (``cloud.knn``), distance gating
-at max_corr_dist, the linearised point-to-plane 6x6 solve, the SE(3)
-update, fitness and inlier RMSE as Open3D reports them. The loop reads
-one flag from the device per iteration (converged or not); nothing else
-in the step waits for the device.
+Port of ``repas_tpu/cloud/registration.py``. ICP is a compiled step on
+the card (``core.jit``; `max_iters`, `dims` and `slots` static, the
+distances and tolerance 0-d tensors, as the reference jits it), and the
+reference's ``lax.while_loop`` is ``core.jit.while_loop`` over (T, rmse,
+fitness, iteration, done): captured, one WHILE graph node whose body is
+one iteration (grid-hash 1-NN correspondences, distance gating at
+max_corr_dist, the linearised point-to-plane 6x6 solve, the SE(3)
+update, fitness and inlier RMSE as Open3D reports them), so a replay
+reads nothing on the host; on the CPU a Python loop that reads the
+condition before each iteration. ``register_clouds`` runs each stage as
+its own compiled step, as the reference does, and reads the host where
+it does: the AABB, the downsampled counts, RANSAC's T and fitness, and
+ICP's iteration count.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +28,8 @@ from repas_tpu_torch.cloud.fpfh import (fpfh_features, match_features,
 from repas_tpu_torch.cloud.knn import grid2_build, grid2_query
 from repas_tpu_torch.cloud.normals import estimate_normals_grid
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit, while_loop
+from repas_tpu_torch.core.precision import cusolver
 from repas_tpu_torch.core.transforms import make_T, rodrigues
 
 
@@ -52,13 +61,27 @@ def icp_point_to_plane(src: torch.Tensor, src_mask: torch.Tensor,
     """src (S,3)+mask, tgt (T,3)+mask+normals, on one device. Stops after
     the step whose RMSE and fitness both moved less than `rel_tol`
     (relative, absolute), or after max_iters; the result's metrics are
-    evaluated once more at the final T."""
+    evaluated once more at the final T. `T_init` may lie on the host;
+    `iterations` is read from the device once, after the step."""
+    if T_init is not None:
+        T_init = torch.as_tensor(T_init, dtype=torch.float32).to(src.device)
+    T, fit, rmse, it = _icp(src, src_mask, tgt, tgt_mask, tgt_normals,
+                            max_corr_dist, max_iters, rel_tol, T_init, dims,
+                            slots)
+    return ICPResult(T=T, fitness=fit, inlier_rmse=rmse, iterations=int(it))
+
+
+@functools.partial(jit, static_argnames=("max_iters", "dims", "slots"),
+                   scalar_argnames=("max_corr_dist", "rel_tol"))
+def _icp(src, src_mask, tgt, tgt_mask, tgt_normals, max_corr_dist,
+         max_iters, rel_tol, T_init, dims, slots):
+    """icp_point_to_plane's step: (T, fitness, inlier RMSE, iterations
+    (), int32)."""
     f32 = torch.float32
     src = src.to(f32)
     tgt = tgt.to(f32)
     dev = src.device
-    T = (torch.eye(4, dtype=f32, device=dev) if T_init is None
-         else torch.as_tensor(T_init, dtype=f32).to(dev))
+    T0 = torch.eye(4, dtype=f32, device=dev) if T_init is None else T_init
     # two-level grid: coarse cell = max_corr_dist covers the radius, fine
     # cell = max_corr_dist / 4 keeps the NN unbiased on dense targets
     gh = grid2_build(tgt, tgt_mask, max_corr_dist, coarse_dims=dims,
@@ -73,43 +96,55 @@ def icp_point_to_plane(src: torch.Tensor, src_mask: torch.Tensor,
         nn_s = torch.clamp(nn, min=0).to(torch.int64)
         return p, tgt[nn_s], tgt_normals[nn_s], ok, dist
 
-    def step(T, prev_rmse, prev_fit):
+    def step(state):
+        T, prev_rmse, prev_fit, it, done = state
         p, q, n, ok, dist = correspondences(T)
         w = ok.to(f32)
         r = torch.sum((p - q) * n, dim=1)
         J = torch.cat([torch.linalg.cross(p, n, dim=1), n], dim=1)  # (S,6)
         Jw = J * w[:, None]
-        # solve_ex: no status check, so the solve does not wait for the card
-        x = torch.linalg.solve_ex(J.T @ Jw + eye6, Jw.T @ r).result
+        # solve_ex reads no status; cuSOLVER, since the default heuristic
+        # may route a small solve to MAGMA, which synchronises
+        with cusolver(dev):
+            x = torch.linalg.solve_ex(J.T @ Jw + eye6, Jw.T @ r).result
         T_new = make_T(rodrigues(-x[:3]), -x[3:]) @ T
         rmse, fit = _metrics(ok, dist, n_src)
         converged = ((torch.abs(prev_rmse - rmse)
                       < rel_tol * torch.clamp(prev_rmse, min=1e-12))
                      & (torch.abs(prev_fit - fit) < rel_tol))
-        return T_new, rmse, fit, converged
+        return T_new, rmse, fit, it + 1, done | converged
 
-    rmse = torch.full((), torch.inf, dtype=f32, device=dev)
-    fit = torch.zeros((), dtype=f32, device=dev)
-    it = 0
-    while it < max_iters:
-        T, rmse, fit, converged = step(T, rmse, fit)
-        it += 1
-        if bool(converged):                    # the step's one device read
-            break
+    def cond(state):
+        _, _, _, it, done = state
+        return (it < max_iters) & ~done
+
+    state = (T0, torch.full((), torch.inf, dtype=f32, device=dev),
+             torch.zeros((), dtype=f32, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    T, _, _, it, _ = while_loop(cond, step, state, max_trips=max_iters,
+                                unroll=False)
 
     # final metrics at the converged transform (Open3D evaluates once more)
     _, _, _, ok, dist = correspondences(T)
     rmse, fit = _metrics(ok, dist, n_src)
-    return ICPResult(T=T, fitness=fit, inlier_rmse=rmse, iterations=it)
+    return T, fit, rmse, it
 
 
 def evaluate_registration(src, src_mask, tgt, tgt_mask, T,
                           max_corr_dist: float = 0.05,
                           dims: tuple = (64, 64, 64)):
-    """Open3D evaluate_registration: (fitness, inlier RMSE) of T."""
+    """Open3D evaluate_registration: (fitness, inlier RMSE) of T (which
+    may lie on the host)."""
+    T = torch.as_tensor(T, dtype=torch.float32).to(tgt.device)
+    return _evaluate(src, src_mask, tgt, tgt_mask, T, max_corr_dist, dims)
+
+
+@functools.partial(jit, static_argnames=("dims",),
+                   scalar_argnames=("max_corr_dist",))
+def _evaluate(src, src_mask, tgt, tgt_mask, T, max_corr_dist, dims):
     f32 = torch.float32
     tgt = tgt.to(f32)
-    T = torch.as_tensor(T, dtype=f32).to(tgt.device)
     gh = grid2_build(tgt, tgt_mask, max_corr_dist, coarse_dims=dims)
     p = src.to(f32) @ T[:3, :3].T + T[:3, 3]
     nn, dist = grid2_query(gh, tgt, p, src_mask, coarse_dims=dims)

@@ -17,7 +17,9 @@ every launch of one call into a ``torch.cuda.CUDAGraph``:
   default, as under ``jax.jit``;
 * an argument that is neither a tensor (nor None) nor static raises
   TypeError: its value would be baked into the graph. The outputs are
-  tensors too;
+  tensors too. The exception are ``scalar_argnames``: a Python number
+  there becomes a 0-d float32 tensor on the step's device, as JAX traces
+  a Python scalar, so a new value replays the same graph;
 * on a CUDA device the first call for a key copies the inputs into
   static buffers, runs ``fn`` ``WARMUP`` times on a side stream (which
   fills the constant caches of ``core/consts.py``, builds the kernels
@@ -27,9 +29,9 @@ every launch of one call into a ``torch.cuda.CUDAGraph``:
   synchronises the device; a replay does not;
 * a capture or a replay that fails raises RuntimeError naming ``fn``
   and the CUDA error. The eager step never runs in its place;
-* a call made while a capture runs (a jitted step inside another's
-  capture) runs ``fn`` inline, as a nested ``jax.jit`` inlines;
-* on the CPU ``fn`` runs directly;
+* a call made while a capture or its warm-up runs (a jitted step inside
+  another's) runs ``fn`` inline, as a nested ``jax.jit`` inlines;
+* on the CPU ``fn`` runs directly, and inside ``disable_jit()`` too;
 * a kernel wrapper counts its launch calls in ``kernels._build.launches``
   as it always does, so the warm-up and the capture count and a replay
   adds nothing: a replay's kernels show in a ``torch.profiler`` trace;
@@ -54,14 +56,20 @@ false once it is false. Outside a capture it is a Python loop that reads
 the condition on the host before each trip. Inside one it records
 ``max_trips`` conditional (IF) nodes in sequence, each gated by the
 condition computed on the device after the trip before it, so a replay
-runs the trips the data needs and reads nothing on the host. Conditional
-nodes need CUDA 12.4 or later, in the runtime and the driver; the port
-records them through the CUDA runtime (``kernels/csrc/graph_if.cu``),
-as PyTorch 2.11 has no Python API for them.
+runs the trips the data needs and reads nothing on the host. With
+``unroll=False`` it records one WHILE node instead, whose body (one trip,
+captured once) runs again while the condition, computed at the body's
+end, holds and fewer than ``max_trips`` trips ran: the form for a long
+body (ICP's iteration, about 5,900 nodes at 1M points).
+Conditional nodes need CUDA 12.4 or later, in the runtime and the
+driver; the port records them through the CUDA runtime
+(``kernels/csrc/graph_if.cu``), as PyTorch 2.11 has no Python API for
+them.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import inspect
 import threading
@@ -76,6 +84,7 @@ WARMUP = 1
 _JITTED = weakref.WeakSet()     # every compiled function, for clear_caches
 _pinning = threading.local()    # .pins: what the running capture reads
 _warming = threading.local()    # .on: a capture's eager warm-up runs
+_disabled = threading.local()   # .on: inside disable_jit()
 
 
 def pin(x):
@@ -86,6 +95,18 @@ def pin(x):
     if pins is not None:
         pins.append(x)
     return x
+
+
+@contextlib.contextmanager
+def disable_jit():
+    """Every compiled step called inside (on this thread) runs its
+    function eagerly, the counterpart of ``jax.disable_jit()``."""
+    prev = getattr(_disabled, "on", False)
+    _disabled.on = True
+    try:
+        yield
+    finally:
+        _disabled.on = prev
 
 
 def clear_caches() -> None:
@@ -138,8 +159,9 @@ def _unflatten(tree, leaves):
 @dataclass
 class _Graph:
     """One captured call: its static input and output buffers, the output
-    structure, the cached objects it reads (``pin``), and the event and
-    stream of its last replay."""
+    structure, the cached objects it reads (``pin``), the event and
+    stream of its last replay, its nodes at the top level and the nodes
+    of each WHILE node's body."""
     graph: torch.cuda.CUDAGraph
     static_in: list
     out_tree: tuple
@@ -147,22 +169,27 @@ class _Graph:
     pins: list
     done: torch.cuda.Event
     stream: int | None = None
+    nodes: int | None = None
+    while_nodes: list | None = None
 
 
 class Jitted:
     """``fn`` captured per key as a CUDA graph (see the module's
     docstring). ``graphs`` maps each key to its captured call."""
 
-    def __init__(self, fn, static_argnames=()):
+    def __init__(self, fn, static_argnames=(), scalar_argnames=()):
         self.fn = fn
         self.name = getattr(fn, "__qualname__", repr(fn))
         self.signature = inspect.signature(fn)
         self.static_argnames = tuple(static_argnames)
-        unknown = [n for n in self.static_argnames
-                   if n not in self.signature.parameters]
-        if unknown:
-            raise ValueError(f"jit({self.name}): static_argnames {unknown} "
-                             "are not parameters of the function")
+        self.scalar_argnames = tuple(scalar_argnames)
+        for what, names in (("static_argnames", self.static_argnames),
+                            ("scalar_argnames", self.scalar_argnames)):
+            unknown = [n for n in names
+                       if n not in self.signature.parameters]
+            if unknown:
+                raise ValueError(f"jit({self.name}): {what} {unknown} are "
+                                 "not parameters of the function")
         self.graphs = {}
         self._streams = {}
         self._lock = threading.Lock()
@@ -171,11 +198,15 @@ class Jitted:
 
     def _split(self, args, kwargs):
         """(bound arguments, the key, the tensor leaves, the device or
-        None when no tensor was given)."""
+        None when no tensor was given, the scalar arguments given as
+        Python numbers: they are not in the key)."""
         bound = self.signature.bind(*args, **kwargs)
-        statics, trees, leaves = [], [], []
+        statics, trees, leaves, numbers = [], [], [], []
         for name, param in self.signature.parameters.items():
-            if name in self.static_argnames:
+            if name in self.scalar_argnames and _is_number(
+                    bound.arguments.get(name, param.default)):
+                numbers.append(name)
+            elif name in self.static_argnames:
                 value = bound.arguments.get(name, param.default)
                 try:
                     hash(value)
@@ -195,17 +226,27 @@ class Jitted:
         key = (tuple(trees), tuple(statics),
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves),
                torch.is_grad_enabled(), torch.is_inference_mode_enabled())
-        return bound, key, leaves, (devices.pop() if devices else None)
+        return bound, key, leaves, (devices.pop() if devices else None), \
+            numbers
 
     def key(self, *args, **kwargs):
-        """The cache key of a call with these arguments."""
-        return self._split(args, kwargs)[1]
+        """The cache key of a call with these arguments (on the card: a
+        scalar argument keys as a 0-d float32 tensor)."""
+        bound, key, _, dev, numbers = self._split(args, kwargs)
+        if numbers and dev is not None:
+            key = self._split(*_scalars_to_tensors(bound, numbers, dev))[1]
+        return key
 
     def __call__(self, *args, **kwargs):
-        bound, key, leaves, dev = self._split(args, kwargs)
+        bound, key, leaves, dev, numbers = self._split(args, kwargs)
         if dev is None or dev.type != "cuda" or \
-                torch.cuda.is_current_stream_capturing():
+                torch.cuda.is_current_stream_capturing() or \
+                getattr(_warming, "on", False) or \
+                getattr(_disabled, "on", False):
             return self.fn(*args, **kwargs)
+        if numbers:
+            bound, key, leaves, dev, _ = self._split(
+                *_scalars_to_tensors(bound, numbers, dev))
         if any(t.requires_grad for t in leaves):
             raise ValueError(f"jit({self.name}): a captured step does not "
                              "differentiate; pass tensors without "
@@ -246,9 +287,11 @@ class Jitted:
         cur.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         pins = _pinning.pins = []
+        while_nodes = _pinning.while_nodes = []
         try:
             with torch.cuda.graph(graph, stream=stream):
                 out = self._call_with(bound, static_in)
+                nodes = _capture_nodes(stream)
         except RuntimeError as e:
             # a failed capture_end leaves the side stream current and
             # bound to the graph's pool: give it up
@@ -257,11 +300,12 @@ class Jitted:
             raise RuntimeError(f"jit({self.name}): CUDA graph capture "
                                f"failed: {e}") from e
         finally:
-            _pinning.pins = None
+            _pinning.pins = _pinning.while_nodes = None
         static_out = []
         out_tree = _flatten(out, static_out, "output")
         return _Graph(graph, static_in, out_tree, static_out, pins,
-                      torch.cuda.Event())
+                      torch.cuda.Event(), nodes=nodes,
+                      while_nodes=while_nodes)
 
     def _replay(self, entry: _Graph, leaves, dev):
         cur = torch.cuda.current_stream(dev)
@@ -286,11 +330,37 @@ class Jitted:
             self.graphs.clear()
 
 
-def jit(fn, *, static_argnames=()) -> Jitted:
+def _is_number(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
+def _scalars_to_tensors(bound, names, dev):
+    """(args, kwargs) of `bound` with the Python numbers of `names` as
+    0-d float32 tensors on `dev` (filled on the device: no host copy)."""
+    params = bound.signature.parameters
+    for name in names:
+        bound.arguments[name] = torch.full(
+            (), float(bound.arguments.get(name, params[name].default)),
+            dtype=torch.float32, device=dev)
+    return bound.args, bound.kwargs
+
+
+def jit(fn, *, static_argnames=(), scalar_argnames=()) -> Jitted:
     """``fn`` compiled per static configuration: on CUDA tensors one CUDA
     graph per key, replayed; on the CPU ``fn`` itself (module
-    docstring)."""
-    return Jitted(fn, static_argnames)
+    docstring). A Python number passed for one of `scalar_argnames`
+    becomes a 0-d float32 tensor on the card, as JAX traces it."""
+    return Jitted(fn, static_argnames, scalar_argnames)
+
+
+def _capture_nodes(stream: torch.cuda.Stream) -> int:
+    """The nodes a capture on `stream` has recorded (top level)."""
+    from repas_tpu_torch.kernels import _build
+
+    n = ctypes.c_ulonglong(0)
+    _build.check("repas_capture_nodes", _build.library().repas_capture_nodes(
+        stream.cuda_stream, stream.device.index, ctypes.addressof(n)))
+    return n.value
 
 
 def _capturing(leaves) -> bool:
@@ -299,7 +369,14 @@ def _capturing(leaves) -> bool:
         torch.cuda.is_current_stream_capturing()
 
 
-_body_streams = {}      # device -> the stream IF bodies are captured from
+_body_streams = {}      # device -> the stream node bodies are captured from
+
+
+def _body_stream(dev) -> torch.cuda.Stream:
+    body = _body_streams.get(dev)
+    if body is None:
+        body = _body_streams[dev] = torch.cuda.Stream(dev)
+    return body
 
 
 @contextlib.contextmanager
@@ -311,9 +388,7 @@ def _if_node(pred: torch.Tensor, pool):
     from repas_tpu_torch.kernels import _build
 
     dev = pred.device
-    body = _body_streams.get(dev)
-    if body is None:
-        body = _body_streams[dev] = torch.cuda.Stream(dev)
+    body = _body_stream(dev)
     lib = _build.library()
     _build.check("repas_if_begin", lib.repas_if_begin(
         pred.reshape(()).data_ptr(), body.cuda_stream, dev.index,
@@ -329,7 +404,47 @@ def _if_node(pred: torch.Tensor, pool):
                                                       dev.index))
 
 
-def while_loop(cond_fn, body_fn, state, max_trips: int, on_test=None):
+@contextlib.contextmanager
+def _while_node(cond, pool):
+    """Work issued inside is recorded, once, into the body of a WHILE node
+    that the running capture adds after cond() (a function returning a
+    one-element bool tensor on the card); cond() is computed again as the
+    body's last work, and a replay runs the body again while it holds:
+    ``csrc/graph_if.cu``. The body's allocations come from `pool`, which
+    the graph keeps alive."""
+    from repas_tpu_torch.kernels import _build
+
+    pred = cond().reshape(())
+    dev = pred.device
+    body = _body_stream(dev)
+    lib = _build.library()
+    handle = ctypes.c_ulonglong(0)
+    _build.check("repas_while_begin", lib.repas_while_begin(
+        pred.data_ptr(), body.cuda_stream, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.addressof(handle)))
+    torch._C._cuda_beginAllocateCurrentThreadToPool(dev.index, pool.id)
+    again = None
+    try:
+        with torch.cuda.stream(body):
+            yield
+            again = cond().reshape(())
+    finally:
+        torch._C._cuda_endAllocateToPool(dev.index, pool.id)
+        torch._C._cuda_releasePool(dev.index, pool.id)
+        if again is None:        # the body raised: end its capture only
+            lib.repas_if_end(body.cuda_stream, dev.index)
+        else:
+            nodes = ctypes.c_ulonglong(0)
+            _build.check("repas_while_end", lib.repas_while_end(
+                again.data_ptr(), handle.value, body.cuda_stream,
+                dev.index, ctypes.addressof(nodes)))
+            counts = getattr(_pinning, "while_nodes", None)
+            if counts is not None:
+                counts.append(nodes.value)
+
+
+def while_loop(cond_fn, body_fn, state, max_trips: int, on_test=None,
+               unroll: bool = True):
     """``jax.lax.while_loop(cond_fn, body_fn, state)`` for at most
     `max_trips` trips of a condition that stays false once false.
 
@@ -343,12 +458,18 @@ def while_loop(cond_fn, body_fn, state, max_trips: int, on_test=None):
       first runs once on a copy of the state, whose result is dropped, so
       its lazy caches (kernel builds, constants, launch plans) are filled
       before the capture records it even where the loop runs no trip.
-    * Inside a ``jit`` capture: `max_trips` IF nodes, each gated by
-      cond_fn of the state after the one before; each body writes its
-      result into the state's own tensors (a skipped body leaves them),
-      so the nodes after it read fixed addresses. The bodies are captured
-      from one stream and allocate from one memory pool, which the graph
-      keeps, so a body reuses the blocks the one before freed.
+    * Inside a ``jit`` capture, `unroll` True: `max_trips` IF nodes,
+      each gated by cond_fn of the state after the one before; each body
+      writes its result into the state's own tensors (a skipped body
+      leaves them), so the nodes after it read fixed addresses. The
+      bodies are captured from one stream and allocate from one memory
+      pool, which the graph keeps, so a body reuses the blocks the one
+      before freed.
+    * Inside a ``jit`` capture, `unroll` False: one WHILE node whose
+      body, captured once, runs a trip, writes the state's own tensors,
+      counts the trip on the device and computes cond_fn & (trips <
+      max_trips) for the node to test: a replay runs the trips the data
+      needs, at most `max_trips`, and reads nothing on the host.
     """
     leaves = []
     tree = _flatten(state, leaves, "state")
@@ -372,6 +493,19 @@ def while_loop(cond_fn, body_fn, state, max_trips: int, on_test=None):
         with torch.cuda.device(leaves[0].device):
             pool = pin(torch.cuda.MemPool())
         bufs = [t.clone() for t in leaves]
+        if not unroll:
+            trips = torch.zeros((), dtype=torch.int32,
+                                device=leaves[0].device)
+
+            def go():
+                return cond_fn(rebuild(bufs)).reshape(()) & (trips
+                                                              < max_trips)
+
+            with _while_node(go, pool):
+                for buf, t in zip(bufs, flat(body_fn(rebuild(bufs)))):
+                    buf.copy_(t)
+                trips.add_(1)
+            return rebuild(bufs)
         for _ in range(max_trips):
             with _if_node(cond_fn(rebuild(bufs)), pool):
                 for buf, t in zip(bufs, flat(body_fn(rebuild(bufs)))):

@@ -9,6 +9,8 @@ switches are set explicitly, as the reference forces
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -17,3 +19,18 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def cusolver(dev: torch.device):
+    """cuSOLVER for the linear algebra on a CUDA device: the default
+    heuristic may route a small solve to MAGMA, which synchronises."""
+    if dev.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)

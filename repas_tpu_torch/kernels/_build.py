@@ -33,7 +33,7 @@ LIB_NAME = "librepas_kernels.so"
 # Wrapper calls that launched their kernel, by kernel. A wrapper adds one
 # where it launches, and nowhere else; callers may reset the counts.
 launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0,
-            "patch_blk": 0, "patch_exact": 0}
+            "patch_blk": 0, "patch_exact": 0, "eig3": 0, "kabsch3": 0}
 
 # an entry point's return code when the CUDA driver lacks a call (csrc/*.cu)
 NO_DRIVER_CALL = -100000
@@ -45,6 +45,7 @@ build_seconds = None    # wall time of this process's build, None if reused
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # mask, out, aux, B, H, W, iters, cluster, band_rows, group, device,
     # stream
@@ -61,10 +62,20 @@ _SIGNATURES = {
     "repas_patch_extract": [_P, _P, _P, *[_I] * 16, _P],
     # depth, rgb, K, scale, out, B, H, W, device, stream
     "repas_pointcloud": [_P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _P],
+    # A, w, V, sweeps (or null), N, device, stream (csrc/eig3.cu)
+    "repas_eig3": [_P, _P, _P, _P, _L, _I, _P],
+    # H, R, sweeps (or null), N, device, stream (csrc/kabsch3.cu)
+    "repas_kabsch3": [_P, _P, _P, _L, _I, _P],
     # pred, body stream, device, stream (csrc/graph_if.cu)
     "repas_if_begin": [_P, _P, _I, _P],
     # body stream, device
     "repas_if_end": [_P, _I],
+    # pred, body stream, device, stream, handle out
+    "repas_while_begin": [_P, _P, _I, _P, _P],
+    # pred, handle, body stream, device, body nodes out
+    "repas_while_end": [_P, ctypes.c_ulonglong, _P, _I, _P],
+    # stream, device, nodes out
+    "repas_capture_nodes": [_P, _I, _P],
 }
 
 

@@ -8,7 +8,11 @@ RANSAC on one set of picks: the same best hypothesis, T within 1e-5;
 grid NN equal wherever the best target beats the runner-up by more than
 1e-6 m, distances within 1e-6; voxel representatives equal and means
 within 1e-6 (the card sums with atomics, in another order); outlier and
-normal masks on one sample equal.
+normal masks on one sample equal. Compiled against eager on the card
+(``core.jit``: each stage a captured graph, ICP's loop one WHILE node):
+ICP bit-equal with the same iterations, also when it runs to max_iters
+(masked source points: C9's NaN RMSE); register_clouds' T within 1e-5 m
+and 1e-3 degrees (the voxel means' atomics).
 """
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repas_tpu_torch.cloud import filters, fpfh, knn, normals  # noqa: E402
 from repas_tpu_torch.cloud import registration as reg  # noqa: E402
+from repas_tpu_torch.core.jit import disable_jit  # noqa: E402
 from repas_tpu_torch.core.transforms import make_T, rodrigues  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -152,3 +157,47 @@ def test_register_clouds_takes_numpy_to_the_card(dev):
     assert float(res.fitness) > 0.5
     assert np.abs(T[:3, 3] - t).max() < 1e-3
     assert _angle_deg(T[:3, :3], R) < 0.05
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_compiled_icp_equals_eager(dev, masked):
+    src, tgt, R, t = _scene(8000)
+    src, tgt = src.to(dev), tgt.to(dev)
+    mask = torch.ones(8000, dtype=torch.bool, device=dev)
+    smask = mask.clone()
+    if masked:
+        smask[::50] = False
+    nrm, _ = normals.estimate_normals_grid(tgt, mask, k=16, radius=0.06)
+    T_init = make_T(rodrigues(torch.tensor(RV) + torch.tensor(
+        [0.01, -0.01, 0.005])), torch.tensor(t) + 0.003).numpy()
+    reg._icp.clear()
+
+    def icp():
+        return reg.icp_point_to_plane(src, smask, tgt, mask, nrm,
+                                      max_corr_dist=0.045, max_iters=12,
+                                      T_init=T_init)
+
+    icp()                                                   # captures
+    got = icp()
+    with disable_jit():
+        want = icp()
+    assert got.iterations == want.iterations
+    assert (got.iterations == 12) == masked
+    assert torch.equal(got.T, want.T)
+    assert np.isnan(float(got.inlier_rmse)) == masked
+    entry = next(iter(reg._icp.graphs.values()))
+    assert len(entry.while_nodes) == 1 and entry.while_nodes[0] > 20
+
+
+def test_compiled_register_clouds_equals_eager(dev):
+    src, tgt, R, t = _scene(20000, seed=2)
+    mask = torch.ones(20000, dtype=torch.bool, device=dev)
+    args = [src.to(dev), mask, tgt.to(dev), mask]
+    reg.register_clouds(*args, seed=3)                      # captures
+    got, fit, _ = reg.register_clouds(*args, seed=3)
+    with disable_jit():
+        want, fit_e, _ = reg.register_clouds(*args, seed=3)
+    Tg, Te = got.T.cpu().numpy(), want.T.cpu().numpy()
+    assert np.abs(Tg[:3, 3] - Te[:3, 3]).max() <= 1e-5
+    assert _angle_deg(Tg[:3, :3], Te[:3, :3]) <= 1e-3
+    assert np.abs(Tg[:3, 3] - t).max() < 1e-3

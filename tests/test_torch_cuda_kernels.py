@@ -1,13 +1,19 @@
 """The hand-written CUDA kernels (B1 CCL, B2 patch extraction, B3 point
 cloud, B4 segmented scans and tiled CCL, B5 and B6 the window copies of
-the measurement tool micro_perf) against their plain PyTorch versions,
-on the card; the window copies on each of their paths (vector, TMA,
-element by element) and at negative and edge starts.
+the measurement tool micro_perf, K1 the 3x3 eigh and K2 the Kabsch
+rotation) against their plain PyTorch versions, on the card; the window
+copies on each of their paths (vector, TMA, element by element) and at
+negative and edge starts.
 
 Marked ``cuda``: they skip where torch sees no CUDA device. On a machine
 with a card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 Tolerances: B1, B2, B4, B5 and B6 exact; B3 rtol 1e-6 (same formula,
-same order).
+same order). K1 and K2 compute in float64 and round once: against their
+plain versions run in float64, eigenvalues within 1e-5 of the largest,
+the smallest eigenvector within 1e-4 rad where the two smallest
+eigenvalues are over 1e-6 of the trace apart (else |Av - lv| within
+1e-5 |A|), R within 1e-5 where sigma2 > 1e-6 sigma1, det R = 1 within
+1e-5 everywhere.
 A mask density of -1 makes an all-foreground mask, 1 an all-background one.
 """
 import numpy as np
@@ -18,6 +24,9 @@ torch = pytest.importorskip("torch")
 from repas_tpu_torch.kernels import _build, ccl, ccl_cuda  # noqa: E402
 from repas_tpu_torch.kernels import ccl_tiled  # noqa: E402
 from repas_tpu_torch.kernels import patch_extract, pointcloud  # noqa: E402
+from repas_tpu_torch.kernels.eig3 import eig3, eig3_plain  # noqa: E402
+from repas_tpu_torch.kernels.kabsch3 import (kabsch3,  # noqa: E402
+                                             kabsch3_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -496,3 +505,84 @@ def test_front_end_on_card_matches_cpu(dev):
                                  0.0303, K)
     assert (Rg.cpu() - Rc).abs().max() <= 2e-4
     assert (tg.cpu() - tc).abs().max() <= 1e-4
+
+
+def _covariances(n, seed=0):
+    """Covariances of 16-point neighbourhoods: planar, linear, isotropic,
+    thin planar; then, where n > 2, one exactly isotropic and one
+    zero."""
+    g = torch.Generator().manual_seed(seed)
+    scales = torch.tensor([[1, 1, 1e-3], [1, 1e-4, 1e-4], [1, 1, 1],
+                           [1, 0.3, 0.01]])
+    p = torch.randn(n, 16, 3, generator=g, dtype=torch.float64) \
+        * scales[torch.arange(n) % 4][:, None, :]
+    q, _ = torch.linalg.qr(torch.randn(n, 3, 3, generator=g,
+                                       dtype=torch.float64))
+    d = p @ q
+    d = d - d.mean(dim=1, keepdim=True)
+    A = (d.mT @ d).float()
+    if n > 2:
+        A[0] = 2.0 * torch.eye(3)
+        A[1] = 0.0
+    return A
+
+
+@pytest.mark.parametrize("n", [1, 37, 70_000])       # over cuSOLVER's 32k
+def test_eig3_kernel_matches_plain(dev, n):
+    A = _covariances(n).to(dev)
+    before = _build.launches["eig3"]
+    sweeps = torch.zeros(n, dtype=torch.int32, device=dev)
+    w, V = eig3(A, sweeps=sweeps)
+    assert _build.launches["eig3"] == before + 1
+    # cuSOLVER's batched eigh takes under 32,768 matrices a call
+    parts = [eig3_plain(A[i:i + 16384].double())
+             for i in range(0, n, 16384)]
+    wp = torch.cat([p[0] for p in parts])
+    Vp = torch.cat([p[1] for p in parts])
+    torch.cuda.synchronize()
+    top = wp.abs().amax(dim=1)
+    assert ((w.double() - wp).abs().amax(dim=1) <= 1e-5 * top + 1e-30).all()
+    assert (w[:, 1:] >= w[:, :-1]).all()
+    gap = (wp[:, 1] - wp[:, 0]) > 1e-6 * (wp.sum(dim=1) + 1e-30)
+    a, b = V[:, :, 0].double(), Vp[:, :, 0]
+    angle = torch.atan2(torch.linalg.cross(a, b).norm(dim=1),
+                        (a * b).sum(dim=1).abs())
+    assert (angle[gap] <= 1e-4).all()
+    Ad, Vd = A.double(), V.double()
+    res = (Ad @ Vd - Vd * w.double()[:, None, :]).norm(dim=1).amax(dim=1)
+    assert (res <= 1e-5 * Ad.norm(dim=(1, 2)) + 1e-30).all()
+    assert int(sweeps.max()) <= 8
+
+
+def test_kabsch3_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(1)
+    P = torch.randn(8192, 3, 3, generator=g) * 0.1
+    Q = torch.randn(8192, 3, 3, generator=g) * 0.1
+    P[1::5, 2] = P[1::5, 1]                               # a repeated pick
+    P[2::5, 2] = P[2::5, 0] + 0.4 * (P[2::5, 1] - P[2::5, 0])  # collinear
+    P[3::97] = P[3::97, :1]                               # one point
+    P, Q = P.to(dev), Q.to(dev)
+    H = (P - P.mean(dim=1, keepdim=True)).mT @ (Q - Q.mean(dim=1,
+                                                           keepdim=True))
+    H[4] = 0.0
+    before = _build.launches["kabsch3"]
+    R = kabsch3(H)
+    assert _build.launches["kabsch3"] == before + 1
+    Rp = kabsch3_plain(H.double())
+    s = torch.linalg.svdvals(H.double())
+    torch.cuda.synchronize()
+    ok = s[:, 1] > 1e-6 * s[:, 0]
+    assert 4000 < int(ok.sum()) < 8192
+    assert float((R.double() - Rp).abs()[ok].max()) <= 1e-5
+    assert float((torch.linalg.det(R.double()) - 1).abs().max()) <= 1e-5
+    assert torch.equal(R[4], torch.eye(3, device=dev))
+
+
+def test_eig3_and_kabsch3_reject_bad_inputs(dev):
+    with pytest.raises(ValueError, match="eig3"):
+        eig3(torch.zeros(4, 3, 3, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="kabsch3"):
+        kabsch3(torch.zeros(4, 2, 3, device=dev))
+    with pytest.raises(ValueError, match="sweeps"):
+        eig3(torch.zeros(4, 3, 3, device=dev),
+             sweeps=torch.zeros(3, dtype=torch.int32, device=dev))

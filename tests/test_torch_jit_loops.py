@@ -361,6 +361,29 @@ def test_captured_while_loop_runs_the_trips_the_data_needs(dev):
     assert len(step.graphs) == 1
 
 
+@pytest.mark.cuda
+def test_captured_while_node_runs_the_trips_the_data_needs(dev):
+    """unroll=False: one WHILE node, replayed with trip counts 0 to past
+    max_trips: each replay runs the trips its condition takes, at most
+    max_trips, with no host read."""
+    def f(x, n):
+        return while_loop(lambda s: s[1] < n, lambda s: _count(*s),
+                          (x, torch.zeros((), dtype=torch.int64,
+                                          device=x.device)), max_trips=5,
+                          unroll=False)
+
+    step = jit_module.jit(f)
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    for n in (3, 0, 5, 1, 9):
+        got = step(x, torch.tensor(n, device=dev))
+        k = min(n, 5)
+        want = f(x, torch.tensor(k, device=dev))
+        assert torch.equal(got[0], want[0]) and int(got[1]) == k
+    assert len(step.graphs) == 1
+    entry = next(iter(step.graphs.values()))
+    assert entry.while_nodes and entry.nodes is not None
+
+
 LADDER_STEPS = ("_stage_a", "_stage_b", "_stage_c")
 
 
