@@ -52,7 +52,10 @@
    step), the stages' times, one robust registration (its compiled
    pieces captured anew: B4 launched in the capture); (c) the tag
    bundle's SQPnP on the card against the CPU; (d) depth-to-color
-   alignment and NV12/YUYV decoding at 720p against the CPU;
+   alignment and NV12/YUYV decoding at 720p against the CPU, each a
+   compiled step held against its eager function (compiled_leaf, below),
+   the alignment also given its numpy camera (a replay of the same
+   graph);
 7. the registration phase (repas_tpu_torch.cloud, compiled: each stage
    of register_clouds a captured graph, ICP's loop one WHILE graph node;
    kernels K1, the 3x3 eigh, and K2, the Kabsch rotation): (a)
@@ -110,11 +113,15 @@
    found, height within 5 mm of the scene's truth, the canopy mark within
    1.5 px of the tip, canopy_px, bar_px and found equal to the CPU port's
    and the height within 1e-5 m of it; its synchronising calls; the host
-   clock (median of 10) and CUDA events; detect_canopy.main once on PNGs
-   of the capture; (b) the reference's 19x19 board (12.7 mm squares) in
-   20 oblique 1280x720 views rendered on the card through a known lens
-   (blur, noise): detection and sub-pixel refinement of every view (all
-   found; two views' corners within 1e-3 px of the CPU port's), then
+   clock (median of 10) and CUDA events; its compiled pieces
+   (canny_edges, hough_horizontal_bar, refine_plant_mask: a graph each)
+   against the eager call (compiled_leaf), each piece's replay traced
+   alone and the share of the call's kernels the three graphs hold;
+   detect_canopy.main once on PNGs of the capture; (b) the reference's
+   19x19 board (12.7 mm squares) in 20 oblique 1280x720 views rendered
+   on the card through a known lens (blur, noise): detection and
+   sub-pixel refinement of every view (all found; two views' corners
+   within 1e-3 px of the CPU port's), then
    calibrate_camera (RMS < 0.3 px, fx and fy within 0.5 %, cx and cy
    within 2 px of the truth); ms per view and the LM's seconds; the
    compiled sub-pixel refinement and LM step against their plain
@@ -125,8 +132,11 @@
    point_to_mesh_signed_distances on the card: within the tessellation's
    sag plus 1e-6 m of the analytic distance, the sign right beyond the
    sag, a 5,000-point subsample equal to the CPU port's within 1e-6
-   relative plus 1e-7 m; host and CUDA-event times; error_report surface
-   once with --txt and --colored-out;
+   relative plus 1e-7 m; the compiled report (one graph holding the 199
+   chunks) against eager (compiled_leaf, 2 turns), and
+   point_to_mesh_distances likewise on the first 30,000 points, equal to
+   the signed distances' magnitudes; error_report surface once with --txt
+   and --colored-out (a replay); the two graphs are then dropped;
 10. the apps_stream phase (the stream, pose, capture, fusion and viewing
    CLIs, the splat renderer and the frame mesh): a 1280x720 replay
    stream of 8 frames (tags 9 and 16 on a plane at 0.5 m, the camera
@@ -148,9 +158,15 @@
    track, validate_pose's delta within 2 mm of the known step, the two
    fused views within 5 mm of each other (median nearest neighbour),
    a drawn splat image, align_depth and capture_aligned equal to the
-   CPU port's files; render_pointcloud of 1M fused points at 1280x720
-   (CUDA events; z-buffer equal to the CPU port's, the image differing
-   at most at tied pixels); sharded_frame_pipeline(process_frames) over
+   CPU port's files; validate_pose threeway on the first translation
+   capture (detector and PnP translations within 10 mm) and its
+   compiled detector_pose against eager (compiled_leaf);
+   render_pointcloud of 1M fused points at 1280x720, compiled against
+   eager on one orbit view through the numpy camera (compiled_leaf),
+   a second view replaying the same graph, equal to its eager image and
+   differing from the first (CUDA events; z-buffer equal to the CPU
+   port's, the image differing at most at tied pixels);
+   sharded_frame_pipeline(process_frames) over
    the card named twice at batch 16 equal to the unsharded step;
 11. the tools phase (repas_tpu_torch.tools, the port of the JAX repo's
    measurement tools, and kernels B5/B6 of tools/micro_perf.py), with the
@@ -236,6 +252,15 @@
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
    "scalar", and on the TMA path its plan: bh, bw, stages, grid,
    smem_bytes), then, last, one JSON line {"ok": true, "device": {...}}.
+
+compiled_leaf, for each of these compiled leaves (the JAX package's
+jax.jit functions that no other compiled step calls): its graphs
+dropped, the capturing call's seconds, each graph's capture seconds
+(warm-up, recording, instantiation), nodes and reserved bytes; a call
+in which every replay raises on a synchronizing CUDA call; its outputs
+bit-equal to the call with every step eager (core.jit.disable_jit); the
+kernels and device ms of a traced compiled call; compiled and eager
+calls in turns (median and spread, host clock and CUDA events).
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It needs one CUDA device and refuses to run without one.
@@ -377,6 +402,7 @@ CAL_SQUARE = 0.0127
 # 160 x 160 cells: 50,880 triangles
 SURF_N, SURF_R, SURF_LAT = 150_000, 0.1, 160
 SURF_SUB = 5_000               # the card-vs-CPU subsample
+SURF_UNSIGNED_N = 30_000       # point_to_mesh_distances' points (1/5)
 
 
 def log(obj) -> None:
@@ -1387,7 +1413,10 @@ def front_end_phase(dev, gpu_line):
     under a small extrinsic) and NV12/YUYV at 1280x720, each on the card
     against the CPU port: alignment equal on all but 1e-3 of the pixels
     (a projection within an ulp of an integer column or row may floor to
-    the other side), YUV within one level on 0.05 % of the values."""
+    the other side), YUV within one level on 0.05 % of the values. Each
+    of the three, a compiled step, against its eager function
+    (compiled_leaf), and the alignment given its numpy camera through
+    its public entry replaying the graph of the tensors' call."""
     from repas_tpu_torch.kernels.align import align_depth_to_color
     from repas_tpu_torch.kernels.color import (frame_to_rgb, nv12_to_rgb,
                                                yuyv_to_rgb)
@@ -1406,6 +1435,16 @@ def front_end_phase(dev, gpu_line):
     cpu = align_depth_to_color(torch.from_numpy(depth), *args, (H, W))
     dd = torch.from_numpy(depth).to(dev)
     dargs = [v.to(dev) for v in args]
+    aligned, compiled = compiled_leaf(
+        "front_end align", [("align_depth_to_color", align_depth_to_color)],
+        lambda: align_depth_to_color(dd, *dargs, (H, W)))
+    with strict_replays() as replays:
+        host_cam = align_depth_to_color(dd, Kd, ROBUST_K, R, t, (H, W))
+    if replays[0] != 1 or len(align_depth_to_color.graphs) != 1 or \
+            not bit_equal(host_cam, aligned):
+        raise AssertionError("align_depth_to_color given numpy arrays did "
+                             "not replay the tensors' graph")
+    compiled["numpy_camera_replayed"] = True
     gpu = align_depth_to_color(dd, *dargs, (H, W)).cpu()
     differ = float((gpu != cpu).float().mean())
     if differ > 1e-3 or float((cpu > 0).float().mean()) < 0.5:
@@ -1419,6 +1458,8 @@ def front_end_phase(dev, gpu_line):
                             ("yuyv", yuyv_to_rgb, (H, 2 * W))):
         buf = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
         bd = buf.to(dev)
+        _, yuv = compiled_leaf(f"front_end {name}", [(name, fn)],
+                               lambda: fn(bd))
         diff = (fn(bd).cpu().int() - fn(buf).int()).abs()
         share = float((diff > 0).float().mean())
         if int(diff.max()) > 1 or share > 5e-4:
@@ -1428,10 +1469,11 @@ def front_end_phase(dev, gpu_line):
         if not np.array_equal(host, fn(bd).cpu().numpy()):
             raise AssertionError(f"frame_to_rgb({name}) differs")
         out[name] = {"differ_share": share,
-                     "ms": cuda_ms(lambda: fn(bd))}
+                     "ms": cuda_ms(lambda: fn(bd)), "compiled": yuv}
     log({"phase": "front_end", "align_differ_share": differ,
          "align_ms": align_ms, "align_valid_share":
-         float((cpu > 0).float().mean()), **out, "gpu": gpu_line})
+         float((cpu > 0).float().mean()), "align_compiled": compiled, **out,
+         "gpu": gpu_line})
 
 
 def calibrated_tracking_phase(dev, gpu_line, records):
@@ -2674,12 +2716,13 @@ def profiled_kernels(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def traced(fn):
+def traced(fn, durations=False):
     """fn() under torch.profiler with every launch count set to 0 just
     before it: (its output, the wrappers' counts read just after, {B1-B3
     key: that kernel's device launches in the trace}, the device kernels'
-    names). A wrapper counts the launches it makes; a replayed graph's
-    launches show only in the trace."""
+    names[, with `durations` their device ns]). A wrapper counts the
+    launches it makes; a replayed graph's launches show only in the
+    trace."""
     from torch.profiler import ProfilerActivity, profile
 
     from repas_tpu_torch.kernels import _build
@@ -2698,10 +2741,13 @@ def traced(fn):
         time.sleep(TRACE_MARGIN_S)
     counts = dict(_build.launches)
     # the raw events: building prof.events()' tree costs seconds a trace
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    names = [e.name() for e in events]
     device = {k: sum(v in n for n in names) for k, v in KERNEL_NAMES.items()}
     TRACED_S[0] += time.perf_counter() - t0
+    if durations:
+        return out, counts, device, names, [e.duration_ns() for e in events]
     return out, counts, device, names
 
 
@@ -2733,9 +2779,188 @@ def device_profile(fn, top=5):
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
 
+# --- compiled leaves: the JAX package's leaf jax.jit functions as captured
+# graphs (canopy pieces, reports, renderer, front end, detector_pose) ----
+LEAF_TURNS = 5                 # compiled and eager calls of a leaf, in turns
+REPORT_TURNS = 2               # the same for the seconds-long reports
+INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+               8: torch.int64}
+
+
+def tree_tensors(x):
+    """Every tensor of an output tree (tensors, tuples, NamedTuples), in
+    order."""
+    if torch.is_tensor(x):
+        return [x]
+    return [t for v in x for t in tree_tensors(v)]
+
+
+def bit_equal(got, want) -> bool:
+    """Whether two output trees hold the same tensors bit for bit."""
+    a, b = tree_tensors(got), tree_tensors(want)
+
+    def bits(t):
+        t = t.detach().contiguous()
+        return t.view(INT_OF_SIZE[t.element_size()]) \
+            if t.is_floating_point() else t
+
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def timed_captures():
+    """{step name: [seconds of each capture made inside: the eager
+    warm-up, the recording and the graph's instantiation]}."""
+    from repas_tpu_torch.core import jit as jit_module
+
+    orig = jit_module.Jitted._capture
+    secs = {}
+
+    def capture(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            secs.setdefault(self.name, []).append(time.perf_counter() - t0)
+
+    jit_module.Jitted._capture = capture
+    try:
+        yield secs
+    finally:
+        jit_module.Jitted._capture = orig
+
+
+def trace_kernels(fn, top=4):
+    """One call of fn traced (see `traced`): (its output, {its device
+    kernels, their summed device ms, the copies and fills among the
+    device events, the `top` kernels by device ms (names shortened)}),
+    from the trace's raw events. The launch counts go on from where they
+    were (a phase's counts stay whole)."""
+    from repas_tpu_torch.kernels import _build
+
+    before = dict(_build.launches)
+    out, counts, _, names, ns = traced(fn, durations=True)
+    for k, v in before.items():
+        _build.launches[k] = v + counts[k]
+    by_name = {}
+    kern = [(n, d) for n, d in zip(names, ns)
+            if not n.startswith(("Memcpy", "Memset"))]
+    for n, d in kern:
+        by_name[n[:60]] = by_name.get(n[:60], 0.0) + d / 1e6
+    return out, {"kernels": len(kern),
+                 "device_ms": sum(d for _, d in kern) / 1e6,
+                 "copies_and_fills": len(names) - len(kern),
+                 "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def spread(ms):
+    """Median, minimum and maximum of a list of ms."""
+    return {"median": float(np.median(ms)), "min": float(min(ms)),
+            "max": float(max(ms)), "n": len(ms)}
+
+
+def turns(fns, reps):
+    """Each fn of {name: fn} called in turn `reps` times, each call
+    synchronized: ({name: {"host": spread of host-clock ms, "events":
+    spread of CUDA-event ms}}, {name: the output of its first call})."""
+    host = {k: [] for k in fns}
+    events = {k: [] for k in fns}
+    first = {}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            h, e = host_and_device_ms(lambda: first.setdefault(k, fn()))
+            host[k].append(h)
+            events[k].append(e)
+    return {k: {"host": spread(host[k]), "events": spread(events[k])}
+            for k in fns}, first
+
+
+def compiled_leaf(what, steps, call, reps=LEAF_TURNS, eager_trace=True):
+    """`call()` runs the compiled steps [(name, core.jit.Jitted)] on the
+    card. Clears their graphs, then: the capturing call (its seconds, each
+    graph's capture seconds, nodes and reserved bytes); a traced call in
+    which every replay raises on a synchronizing CUDA call, every step
+    replayed and no graph captured (its kernels and device ms); with
+    `eager_trace`, the same call with every step eager
+    (core.jit.disable_jit) traced; compiled and eager ms in turns; the
+    compiled outputs bit-equal to the eager ones. Returns (the compiled
+    output, the summary)."""
+    from repas_tpu_torch.core.jit import disable_jit
+
+    def eager():
+        with disable_jit():
+            return call()
+
+    for _, step in steps:
+        step.clear()
+    with timed_captures() as caps:
+        first_s = host_ms(call, 1)[0] / 1e3
+    graphs = {name: len(step.graphs) for name, step in steps}
+    with strict_replays() as replays:
+        (got, syncs), replay_trace = trace_kernels(lambda: syncs_of(call))
+    if replays[0] < len(steps) or \
+            {name: len(step.graphs) for name, step in steps} != graphs:
+        raise AssertionError(f"{what}: {replays[0]} replays for "
+                             f"{len(steps)} steps, graphs {graphs}")
+    nbytes = graph_bytes(steps)
+    out = {"first_call_s": first_s, "replays_per_call": replays[0],
+           "sync_calls_around_replays": len(syncs),
+           "graphs": {name: {
+               "graphs": len(step.graphs),
+               "capture_s": caps.get(step.name, []),
+               "nodes": [e.nodes for e in step.graphs.values()],
+               "reserved_bytes": nbytes[name]} for name, step in steps},
+           "replay_trace": replay_trace}
+    want = None
+    if eager_trace:
+        want, out["eager_trace"] = trace_kernels(eager)
+    out["ms"], firsts = turns({"compiled": call, "eager": eager}, reps)
+    if want is None:
+        want = firsts["eager"]
+    if not bit_equal(got, want):
+        raise AssertionError(f"{what}: the compiled outputs differ from "
+                             "the eager ones")
+    out["bit_equal"] = True
+    return got, out
+
+
+def canopy_compiled(args):
+    """measure_plant_height's compiled pieces (canny_edges,
+    hough_horizontal_bar, refine_plant_mask: a graph each) against the
+    eager call (compiled_leaf), each piece's replay traced alone on the
+    inputs the call gave it, and the share of a compiled call's kernels
+    that the three graphs hold."""
+    from repas_tpu_torch.canopy import bar, measure_plant_height, segment
+
+    height = importlib.import_module("repas_tpu_torch.canopy.height")
+    steps = [("canny_edges", bar.canny_edges),
+             ("hough_horizontal_bar", bar.hough_horizontal_bar),
+             ("refine_plant_mask", segment.refine_plant_mask)]
+    _, out = compiled_leaf("canopy", steps,
+                           lambda: measure_plant_height(*args))
+    with Capture(bar, "canny_edges") as c1, \
+            Capture(bar, "hough_horizontal_bar") as c2, \
+            Capture(height, "refine_plant_mask") as c3:
+        measure_plant_height(*args)
+    pieces = {}
+    for (name, step), c in zip(steps, (c1, c2, c3)):
+        a, kw = c.args
+        pieces[name] = trace_kernels(lambda: step(*a, **kw))[1]
+    total = out["replay_trace"]["kernels"]
+    out["pieces_replay_traces"] = pieces
+    out["graph_kernel_share"] = sum(v["kernels"] for v in
+                                    pieces.values()) / max(total, 1)
+    return out
+
+
 def canopy_part(d, dev, gpu_line):
-    """measure_plant_height at 720p on the card: gates, card vs CPU, times,
-    synchronising calls; then detect_canopy.main on PNGs of the scene."""
+    """measure_plant_height at 720p on the card: its compiled pieces
+    against the eager call, gates, card vs CPU, times, synchronising
+    calls; then detect_canopy.main on PNGs of the scene."""
     from repas_tpu_torch.apps import detect_canopy
     from repas_tpu_torch.canopy import measure_plant_height
 
@@ -2744,8 +2969,7 @@ def canopy_part(d, dev, gpu_line):
     K = ROBUST_K
     args = (torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev),
             torch.from_numpy(K).to(dev))
-    res = measure_plant_height(*args)                # warm
-    torch.cuda.synchronize()
+    compiled = canopy_compiled(args)        # captures the pieces' graphs
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -2778,11 +3002,14 @@ def canopy_part(d, dev, gpu_line):
                "height_m": abs(height - float(cpu.plant_height_m))},
            "sync_calls": len(syncs), "sync_messages": syncs[:3],
            "ms_median": float(np.median(ms)), "ms_all": ms,
-           "ms_cuda_events": ev_ms, "profile": prof, "gpu": gpu_line}
+           "ms_cuda_events": ev_ms, "profile": prof, "compiled": compiled,
+           "gpu": gpu_line}
     log(out)
     fails = []
-    if syncs:
-        fails.append(f"{len(syncs)} synchronising calls")
+    if syncs or compiled["sync_calls_around_replays"]:
+        fails.append(f"{len(syncs)} synchronising calls, "
+                     f"{compiled['sync_calls_around_replays']} around the "
+                     "pieces' replays")
     if not out["found"]:
         fails.append("not found")
     if not abs(height - truth) < 0.005:
@@ -3065,11 +3292,17 @@ def uv_sphere(n_lat, n_lon, r):
 
 
 def surface_part(d, dev, gpu_line):
-    """point_to_mesh_signed_distances for 150,000 points on the card:
-    against the analytic distance, the sign, the CPU on a subsample;
-    times; then error_report surface on files of the scene."""
+    """point_to_mesh_signed_distances for 150,000 points on the card,
+    compiled (one graph holding its 199 chunks) against eager
+    (compiled_leaf): against the analytic distance, the sign, the CPU on a
+    subsample; times; point_to_mesh_distances compiled against eager on
+    the first SURF_UNSIGNED_N points, equal to the signed distances'
+    magnitudes; then error_report surface on files of the scene (a replay
+    of the same graph). The two graphs are dropped at the end (their
+    pools hold gigabytes)."""
     from repas_tpu_torch.apps import error_report
-    from repas_tpu_torch.eval.reports import point_to_mesh_signed_distances
+    from repas_tpu_torch.eval.reports import (point_to_mesh_distances,
+                                              point_to_mesh_signed_distances)
     from repas_tpu_torch.io.ply import (PointCloud, TriangleMesh, write_ply,
                                         write_stl)
 
@@ -3086,14 +3319,21 @@ def surface_part(d, dev, gpu_line):
     nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
     sag = SURF_R - float(np.min(np.abs(np.sum(nrm * a, axis=1))))
     args = [torch.from_numpy(x).to(dev) for x in (pts, verts, tris)]
-    dist = point_to_mesh_signed_distances(*args)           # warm
-    torch.cuda.synchronize()
-    ms, ev_ms = host_and_device_ms(
-        lambda: point_to_mesh_signed_distances(*args))
-    # the kernel mix of one tenth of the triangles (the same per chunk)
-    tenth = args[2][:len(tris) // 10]
-    prof = device_profile(lambda: point_to_mesh_signed_distances(
-        args[0], args[1], tenth))
+    dist, compiled = compiled_leaf(
+        "surface_error", [("point_to_mesh_signed_distances",
+                           point_to_mesh_signed_distances)],
+        lambda: point_to_mesh_signed_distances(*args), reps=REPORT_TURNS,
+        eager_trace=False)
+    ms = compiled["ms"]["compiled"]["host"]["median"]
+    ev_ms = compiled["ms"]["compiled"]["events"]["median"]
+    head = [args[0][:SURF_UNSIGNED_N], args[1], args[2]]
+    udist, unsigned = compiled_leaf(
+        "surface_error unsigned", [("point_to_mesh_distances",
+                                    point_to_mesh_distances)],
+        lambda: point_to_mesh_distances(*head), reps=REPORT_TURNS,
+        eager_trace=False)
+    unsigned["vs_signed_max_m"] = float(
+        (udist - dist[:SURF_UNSIGNED_N].abs()).abs().max())
     dist = dist.cpu().numpy().astype(np.float64)
     true = np.linalg.norm(pts.astype(np.float64), axis=1) - SURF_R
     err = np.abs(np.abs(dist) - np.abs(true))
@@ -3120,10 +3360,14 @@ def surface_part(d, dev, gpu_line):
            "vs_cpu_sign_differ": int((np.sign(dist[sub]) != np.sign(cpu))
                                      [away].sum()),
            "cpu_subsample_s": cpu_s, "cpu_threads": torch.get_num_threads(),
-           "ms_host": ms, "ms_cuda_events": ev_ms,
-           "profile_tenth_of_triangles": prof, "gpu": gpu_line}
+           "ms_host": ms, "ms_cuda_events": ev_ms, "compiled": compiled,
+           "unsigned_points": SURF_UNSIGNED_N, "unsigned_compiled": unsigned,
+           "gpu": gpu_line}
     log(out)
     fails = []
+    if unsigned["vs_signed_max_m"] > 0.0:
+        fails.append(f"unsigned distances off the signed ones' magnitudes "
+                     f"by {unsigned['vs_signed_max_m']}")
     if not err.max() <= sag + 1e-6:
         fails.append(f"error vs analytic {err.max()} over sag {sag}")
     if not sign_ok:
@@ -3149,6 +3393,8 @@ def surface_part(d, dev, gpu_line):
          rep["signed"]["inside_fraction"], "app_s": app_s})
     if rep["count"] != SURF_N or not (d / "colored.ply").exists():
         raise AssertionError(f"error_report surface: {rep}")
+    point_to_mesh_signed_distances.clear()
+    point_to_mesh_distances.clear()
     return out
 
 
@@ -3192,6 +3438,7 @@ APPS_STEP = np.array([0.002, 0.001, 0.0])
 # moved APPS_VALIDATE_STEP between them
 APPS_VALIDATE_TAG, APPS_VALIDATE_Z = 0.12, 0.45
 APPS_VALIDATE_STEP = np.array([0.01, 0.005, 0.0])
+APPS_THREEWAY_MM = 10.0        # detector pose vs PnP in validate_pose
 APPS_VIEW_DEG = 25.0
 APPS_TARGET = np.array([-0.02, -0.03, CAD_Z])
 APPS_RENDER_POINTS = 1_000_000
@@ -3463,12 +3710,48 @@ def apps_stream_vs_cpu(d):
             "capture_aligned_files_equal": True}
 
 
+def validate_pose_threeway(d, dev):
+    """validate_pose threeway on the first translation capture (one 120 mm
+    tag 16 at 0.45 m), whose detector_pose is a compiled step: the CLI's
+    detector and PnP translations within APPS_THREEWAY_MM of each other;
+    detector_pose on the corners and K the CLI gave it, compiled against
+    eager (compiled_leaf)."""
+    from repas_tpu_torch.apps import validate_pose
+
+    cap = d / "cap_first"
+    with Capture(validate_pose, "detector_pose") as c:
+        res = validate_pose.main([
+            "threeway", "--color", str(cap / "color_20250101_000000.png"),
+            "--depth", str(cap / "aligned_depth_20250101_000000.png"),
+            "--intrinsics", str(d / "K.json"), "--tag-size",
+            str(APPS_VALIDATE_TAG), "--json", str(d / "threeway.json"),
+            "--device", str(dev)])
+    if c.args is None:
+        raise AssertionError("validate_pose threeway never called "
+                             "detector_pose")
+    a, kw = c.args
+    _, compiled = compiled_leaf(
+        "validate_pose detector_pose",
+        [("detector_pose", validate_pose.detector_pose)],
+        lambda: validate_pose.detector_pose(*a, **kw))
+    out = {"id": res["id"], "pnp_vs_detector_mm": res["pnp_vs_detector_mm"],
+           "t_detector_mm": np.asarray(res["t_detector_mm"]).tolist(),
+           "compiled": compiled}
+    if not out["pnp_vs_detector_mm"] < APPS_THREEWAY_MM:
+        raise AssertionError(f"validate_pose threeway: {out}")
+    return out
+
+
 def apps_render(fused, dev):
     """render_pointcloud of APPS_RENDER_POINTS fused points (splat 2) into
     1280x720 on the card: its CUDA-event ms (queued behind a spin kernel),
     and its z-buffer and image against the CPU port's (the image may
     differ only at pixels whose winners tie, where both devices apply the
-    same rule, so no pixel is expected to)."""
+    same rule, so no pixel is expected to). The compiled renderer against
+    its eager function (compiled_leaf) on orbit view 1, its numpy camera
+    through the public entry; then view 2 replays the same graph: equal
+    to its eager image, and the two views' images differ."""
+    from repas_tpu_torch.core.jit import disable_jit
     from repas_tpu_torch.viz.render import (orbit_views, render_pointcloud,
                                             zbuffer)
 
@@ -3476,9 +3759,30 @@ def apps_render(fused, dev):
     pts = np.asarray(fused, np.float32)[sel]
     rgb = np.random.default_rng(0).integers(0, 256, (len(pts), 3))
     xyzrgb = np.concatenate([pts, rgb], 1).astype(np.float32)
-    R, t = orbit_views(pts.mean(0), 0.9, n=8)[1]
+    views = orbit_views(pts.mean(0), 0.9, n=8)
+    R, t = views[1]
     K = CAD_K.astype(np.float32)
     card = torch.from_numpy(xyzrgb).to(dev)
+
+    def view(i):
+        return lambda: render_pointcloud(card, K, *views[i], shape=(H, W))
+
+    img1, compiled = compiled_leaf(
+        "apps_render", [("render_pointcloud", render_pointcloud)], view(1))
+    with strict_replays() as replays:
+        img2 = view(2)()
+    with disable_jit():
+        want2 = view(2)()
+    if replays[0] != 1 or len(render_pointcloud.graphs) != 1 or \
+            not bit_equal(img2, want2) or torch.equal(img1, img2):
+        raise AssertionError(f"the second orbit view: {replays[0]} "
+                             f"replays, {len(render_pointcloud.graphs)} "
+                             "graphs, equal to eager "
+                             f"{bit_equal(img2, want2)}, equal to view 1 "
+                             f"{torch.equal(img1, img2)}")
+    compiled["second_view"] = {
+        "bit_equal": True, "differ_from_first_pixels":
+        int((img1 != img2).any(-1).sum())}
     # the camera on the card: no host-to-device copy inside the timed calls
     cam = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
            for a in (K, R, t)]
@@ -3512,7 +3816,7 @@ def apps_render(fused, dev):
         raise AssertionError(f"render image differs from the CPU's at "
                              f"{int((moved & ~tied).sum())} untied pixels")
     return {"points": len(pts), "ms": ms, "host_ms": host_ms_one,
-            "event_ms": event_ms_one, "profile": prof,
+            "event_ms": event_ms_one, "profile": prof, "compiled": compiled,
             "tied_pixels": int(tied.sum()),
             "differ_pixels": int(moved.sum()),
             "drawn_pixels": int((zb < float("inf")).sum())}
@@ -3615,6 +3919,8 @@ def apps_stream_phase(dev, gpu_line):
         if fails:
             raise AssertionError(f"apps_stream: {fails}")
         log({"phase": "apps_stream_vs_cpu", **apps_stream_vs_cpu(d)})
+        log({"phase": "validate_pose_threeway",
+             **validate_pose_threeway(d, dev), "gpu": gpu_line})
         log({"phase": "apps_render", **apps_render(fused, dev),
              "gpu": gpu_line})
     log({"phase": "apps_mesh", **apps_mesh(dev), "gpu": gpu_line})

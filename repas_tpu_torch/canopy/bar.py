@@ -10,6 +10,15 @@ near-horizontal band, the peak's line endpoints from the edge pixels
 within 2 px of it. Every function runs where its input lies and reads
 nothing back to the host.
 
+``canny_edges`` and ``hough_horizontal_bar`` are compiled steps
+(``core.jit``, one CUDA graph per static key on the card), with the
+reference's static arguments and its traced floats (``low``, ``high``;
+``threshold``, ``min_line_frac``) as 0-d tensors. Two arguments the
+reference traces are static here, so each value captures a graph of its
+own: ``sigma``, from which ``kernels.image.gaussian_blur`` computes its
+taps on the host, and ``max_angle_deg``, which keys the cached angle
+tables (ROADMAP C).
+
 The arithmetic follows XLA's CPU rounding of the reference where the
 result is an integer decision or an endpoint (ROADMAP C, probed): the
 rho of a vote is fma(x, cos, y*sin) + diag before its truncation to a
@@ -20,11 +29,13 @@ entries).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
+from repas_tpu_torch.core.jit import jit, pin
 from repas_tpu_torch.kernels.image import (_fma, dilate, gaussian_blur,
                                            get_rotation_matrix_2d,
                                            rgb_to_gray, sobel, warp_affine)
@@ -59,6 +70,8 @@ _SIN_41_20 = tuple(float.fromhex(x) for x in (
 ))
 
 
+@functools.partial(jit, static_argnames=("hysteresis_iters", "sigma"),
+                   scalar_argnames=("low", "high"))
 def canny_edges(gray: torch.Tensor, low: float = 50.0, high: float = 150.0,
                 sigma: float = 1.1, hysteresis_iters: int = 16
                 ) -> torch.Tensor:
@@ -109,7 +122,8 @@ _TABLES = {}
 
 def _angle_tables(n_theta: int, max_angle_deg: float, device):
     """(cos, sin) of the band's normal angles on `device`, made once per
-    device (a host-to-device copy waits for the queue)."""
+    device (a host-to-device copy waits for the queue); a captured step
+    that reads them keeps them alive (``core.jit.pin``)."""
     key = (n_theta, float(max_angle_deg), torch.device(device))
     if key not in _TABLES:
         if n_theta == 41 and float(max_angle_deg) == 20.0:
@@ -119,7 +133,7 @@ def _angle_tables(n_theta: int, max_angle_deg: float, device):
                 -max_angle_deg, max_angle_deg, n_theta) + 90.0)
             tables = (torch.cos(theta), torch.sin(theta))
         _TABLES[key] = tuple(t.to(torch.float32).to(device) for t in tables)
-    return _TABLES[key]
+    return pin(_TABLES[key])
 
 
 def _first_k_indices(flags: torch.Tensor, k: int):
@@ -138,6 +152,9 @@ def _first_k_indices(flags: torch.Tensor, k: int):
     return torch.where(valid, idx[:k], 0), valid
 
 
+@functools.partial(jit, static_argnames=("n_theta", "rho_step", "max_edges",
+                                         "max_angle_deg"),
+                   scalar_argnames=("threshold", "min_line_frac"))
 def hough_horizontal_bar(edges: torch.Tensor, threshold: int = 50,
                          min_line_frac: float = 0.1,
                          max_angle_deg: float = 20.0,

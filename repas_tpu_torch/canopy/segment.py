@@ -13,12 +13,17 @@ the log-ratio table with one gather, where the reference builds
 (pixels x 18) and (pixels x 64) one-hot matrices and einsums them (its
 TPU form; 44 MB at the 360x640 working resolution). Each one-hot row
 holds a single 1, so the reference's sums have one term: counts and
-table entries are the same numbers (ROADMAP C).
+table entries are the same numbers (ROADMAP C). It is a compiled step
+(``core.jit``: one CUDA graph per image shape and ``iters`` on the card,
+the loop over ``iters`` captured unrolled).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.kernels.image import (dilate, hsv_in_range,
                                            morph_close, morph_open,
                                            rgb_to_hsv_cv)
@@ -45,6 +50,7 @@ def _hsv_bins(hsv: torch.Tensor) -> torch.Tensor:
     return (hb * _S_BINS + sb) * _V_BINS + vb
 
 
+@functools.partial(jit, static_argnames=("iters",))
 def refine_plant_mask(rgb: torch.Tensor, seed: torch.Tensor,
                       iters: int = 5) -> torch.Tensor:
     """GrabCut-lite: iterative histogram likelihood refinement of the

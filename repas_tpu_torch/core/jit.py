@@ -19,7 +19,10 @@ every launch of one call into a ``torch.cuda.CUDAGraph``:
   TypeError: its value would be baked into the graph. The outputs are
   tensors too. The exception are ``scalar_argnames``: a Python number
   there becomes a 0-d float32 tensor on the step's device, as JAX traces
-  a Python scalar, so a new value replays the same graph;
+  a Python scalar, so a new value replays the same graph; and
+  ``array_argnames``: a numpy array there is copied to the step's device
+  before the step (its dtype kept), as JAX transfers a host array, so a
+  new camera replays the same graph and is never baked into it;
 * on a CUDA device the first call for a key copies the inputs into
   static buffers, runs ``fn`` ``WARMUP`` times on a side stream (which
   fills the constant caches of ``core/consts.py``, builds the kernels
@@ -76,6 +79,7 @@ import threading
 import weakref
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 # eager calls before the capture; one fills every lazy cache of the port
@@ -177,14 +181,17 @@ class Jitted:
     """``fn`` captured per key as a CUDA graph (see the module's
     docstring). ``graphs`` maps each key to its captured call."""
 
-    def __init__(self, fn, static_argnames=(), scalar_argnames=()):
+    def __init__(self, fn, static_argnames=(), scalar_argnames=(),
+                 array_argnames=()):
         self.fn = fn
         self.name = getattr(fn, "__qualname__", repr(fn))
         self.signature = inspect.signature(fn)
         self.static_argnames = tuple(static_argnames)
         self.scalar_argnames = tuple(scalar_argnames)
+        self.array_argnames = tuple(array_argnames)
         for what, names in (("static_argnames", self.static_argnames),
-                            ("scalar_argnames", self.scalar_argnames)):
+                            ("scalar_argnames", self.scalar_argnames),
+                            ("array_argnames", self.array_argnames)):
             unknown = [n for n in names
                        if n not in self.signature.parameters]
             if unknown:
@@ -199,15 +206,17 @@ class Jitted:
     def _split(self, args, kwargs):
         """(bound arguments, the key, the tensor leaves, the device or
         None when no tensor was given, the scalar arguments given as
-        Python numbers: they are not in the key)."""
+        Python numbers and the array arguments given as numpy arrays:
+        they are not in the key)."""
         bound = self.signature.bind(*args, **kwargs)
-        statics, trees, leaves, numbers = [], [], [], []
+        statics, trees, leaves, host = [], [], [], []
         for name, param in self.signature.parameters.items():
-            if name in self.scalar_argnames and _is_number(
-                    bound.arguments.get(name, param.default)):
-                numbers.append(name)
+            value = bound.arguments.get(name, param.default)
+            if (name in self.scalar_argnames and _is_number(value)) or (
+                    name in self.array_argnames
+                    and isinstance(value, np.ndarray)):
+                host.append(name)
             elif name in self.static_argnames:
-                value = bound.arguments.get(name, param.default)
                 try:
                     hash(value)
                 except TypeError as e:
@@ -227,26 +236,27 @@ class Jitted:
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves),
                torch.is_grad_enabled(), torch.is_inference_mode_enabled())
         return bound, key, leaves, (devices.pop() if devices else None), \
-            numbers
+            host
 
     def key(self, *args, **kwargs):
         """The cache key of a call with these arguments (on the card: a
-        scalar argument keys as a 0-d float32 tensor)."""
-        bound, key, _, dev, numbers = self._split(args, kwargs)
-        if numbers and dev is not None:
-            key = self._split(*_scalars_to_tensors(bound, numbers, dev))[1]
+        scalar argument keys as a 0-d float32 tensor, an array argument
+        as the tensor it is copied to)."""
+        bound, key, _, dev, host = self._split(args, kwargs)
+        if host and dev is not None:
+            key = self._split(*self._to_device(bound, host, dev))[1]
         return key
 
     def __call__(self, *args, **kwargs):
-        bound, key, leaves, dev, numbers = self._split(args, kwargs)
+        bound, key, leaves, dev, host = self._split(args, kwargs)
         if dev is None or dev.type != "cuda" or \
                 torch.cuda.is_current_stream_capturing() or \
                 getattr(_warming, "on", False) or \
                 getattr(_disabled, "on", False):
             return self.fn(*args, **kwargs)
-        if numbers:
+        if host:
             bound, key, leaves, dev, _ = self._split(
-                *_scalars_to_tensors(bound, numbers, dev))
+                *self._to_device(bound, host, dev))
         if any(t.requires_grad for t in leaves):
             raise ValueError(f"jit({self.name}): a captured step does not "
                              "differentiate; pass tensors without "
@@ -256,6 +266,22 @@ class Jitted:
             if entry is None:
                 entry = self.graphs[key] = self._capture(bound, leaves, dev)
             return self._replay(entry, leaves, dev)
+
+    def _to_device(self, bound, names, dev):
+        """(args, kwargs) of `bound` with its host values of `names` on
+        `dev`: a Python number of `scalar_argnames` as a 0-d float32 tensor
+        (filled on the device: no host copy), a numpy array of
+        `array_argnames` copied there with its dtype."""
+        params = bound.signature.parameters
+        for name in names:
+            value = bound.arguments.get(name, params[name].default)
+            if name in self.scalar_argnames and _is_number(value):
+                bound.arguments[name] = torch.full(
+                    (), float(value), dtype=torch.float32, device=dev)
+            else:
+                bound.arguments[name] = torch.from_numpy(
+                    np.ascontiguousarray(value)).to(dev)
+        return bound.args, bound.kwargs
 
     def _call_with(self, bound, tensors):
         """fn on `bound`'s arguments with their tensors replaced, in
@@ -334,23 +360,15 @@ def _is_number(x) -> bool:
     return isinstance(x, (int, float)) and not isinstance(x, bool)
 
 
-def _scalars_to_tensors(bound, names, dev):
-    """(args, kwargs) of `bound` with the Python numbers of `names` as
-    0-d float32 tensors on `dev` (filled on the device: no host copy)."""
-    params = bound.signature.parameters
-    for name in names:
-        bound.arguments[name] = torch.full(
-            (), float(bound.arguments.get(name, params[name].default)),
-            dtype=torch.float32, device=dev)
-    return bound.args, bound.kwargs
-
-
-def jit(fn, *, static_argnames=(), scalar_argnames=()) -> Jitted:
+def jit(fn, *, static_argnames=(), scalar_argnames=(),
+        array_argnames=()) -> Jitted:
     """``fn`` compiled per static configuration: on CUDA tensors one CUDA
     graph per key, replayed; on the CPU ``fn`` itself (module
     docstring). A Python number passed for one of `scalar_argnames`
-    becomes a 0-d float32 tensor on the card, as JAX traces it."""
-    return Jitted(fn, static_argnames, scalar_argnames)
+    becomes a 0-d float32 tensor on the card, as JAX traces it; a numpy
+    array passed for one of `array_argnames` is copied to the card
+    before the step, as JAX transfers it."""
+    return Jitted(fn, static_argnames, scalar_argnames, array_argnames)
 
 
 def _capture_nodes(stream: torch.cuda.Stream) -> int:

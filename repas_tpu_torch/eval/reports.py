@@ -15,17 +15,22 @@ PyTorch that run where their inputs lie.
     column layout is the comparison surface for parity with the
     checked-in correspondence_errors.{txt,csv}.
   * point_to_mesh_distances / point_to_mesh_signed_distances — exact
-    point-to-triangle distances, chunked over triangles on the device
+    point-to-triangle distances, chunked over triangles on the device;
+    compiled steps (``core.jit``, ``chunk`` static as in the reference):
+    on the card one CUDA graph per shape holds every chunk of the loop
   * surface_error_report — percentile stats + histogram/CDF PNG +
     quality buckets (visualize_error.py:95-193)
 """
 from __future__ import annotations
 
+import functools
 import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from repas_tpu_torch.core.jit import jit
 
 GRADES = [
     (5.0, "EXCELLENT"),
@@ -182,6 +187,7 @@ def _corners(verts: torch.Tensor, tris: torch.Tensor):
     return verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
 
 
+@functools.partial(jit, static_argnames=("chunk",))
 def point_to_mesh_distances(pts: torch.Tensor, verts: torch.Tensor,
                             tris: torch.Tensor, chunk: int = 256):
     """Exact unsigned point-to-mesh distances (N,) float32, chunked over
@@ -197,6 +203,7 @@ def point_to_mesh_distances(pts: torch.Tensor, verts: torch.Tensor,
     return torch.sqrt(best)
 
 
+@functools.partial(jit, static_argnames=("chunk",))
 def point_to_mesh_signed_distances(pts: torch.Tensor, verts: torch.Tensor,
                                    tris: torch.Tensor, chunk: int = 256):
     """Exact signed point-to-mesh distances: negative inside, positive

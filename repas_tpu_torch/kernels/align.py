@@ -6,25 +6,33 @@ the color image and z-buffer it there, then close single-pixel holes.
 The reference is XLA code, not a Pallas kernel; the port stays plain
 PyTorch: the 2x2 footprint splat is one ``scatter_reduce_(..., "amin")``
 per footprint offset on a flat buffer, the 3x3 hole fill a min-pool.
+It is a compiled step (``core.jit``: on the card one CUDA graph per depth
+shape, ``out_shape`` and ``fill_holes``); numpy intrinsics and
+extrinsics are copied to the depth's device before the step.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.kernels.pointcloud import depth_image_to_points
 from repas_tpu_torch.kernels.project import project_camera_points
 
 _BIG = 1e9     # empty z-buffer value
 
 
+@functools.partial(jit, static_argnames=("out_shape", "fill_holes"),
+                   array_argnames=("K_depth", "K_color", "R_d2c", "t_d2c"))
 def align_depth_to_color(depth_m: torch.Tensor, K_depth, K_color, R_d2c,
                          t_d2c, out_shape: tuple[int, int],
                          fill_holes: bool = True) -> torch.Tensor:
     """Warp depth images (...,H,W) in meters on the depth camera's grid
     onto the color grid (...,H_c,W_c), float32 meters, 0 where no depth
     projects. K_depth, K_color (3,3), R_d2c (3,3), t_d2c (3,): tensors on
-    the depth's device (arrays are copied there)."""
+    the depth's device or numpy arrays (copied there)."""
     hc, wc = out_shape
     dev = depth_m.device
     Kd, Kc, R, t = (torch.as_tensor(x, dtype=torch.float32, device=dev)

@@ -4,7 +4,9 @@ Port of ``repas_tpu/kernels/color.py`` (``_yuv_to_rgb``, ``nv12_to_rgb``,
 ``yuyv_to_rgb``, ``mjpg_to_rgb``, ``frame_to_rgb``). NV12 and YUYV
 convert on the device in one elementwise pass (BT.601 limited range, as
 OpenCV's COLOR_YUV2RGB_NV12 / _YUYV to rounding); MJPG is a host JPEG
-decode (PIL, imported only when a MJPG frame comes).
+decode (PIL, imported only when a MJPG frame comes). ``nv12_to_rgb`` and
+``yuyv_to_rgb`` are compiled steps (``core.jit``: one CUDA graph per
+buffer shape on the card).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repas_tpu_torch.core.device import host_data_device
+from repas_tpu_torch.core.jit import jit
 
 
 def _yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
@@ -28,6 +31,7 @@ def _yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     return torch.clamp(torch.round(rgb), 0.0, 255.0).to(torch.uint8)
 
 
+@jit
 def nv12_to_rgb(buf: torch.Tensor) -> torch.Tensor:
     """NV12 (H*3/2, W) uint8 planar buffer -> (H,W,3) RGB, on buf's
     device."""
@@ -38,6 +42,7 @@ def nv12_to_rgb(buf: torch.Tensor) -> torch.Tensor:
     return _yuv_to_rgb(buf[:h, :], up[..., 0], up[..., 1])
 
 
+@jit
 def yuyv_to_rgb(buf: torch.Tensor) -> torch.Tensor:
     """YUYV422 (H, W*2) uint8 interleaved buffer -> (H,W,3) RGB, on buf's
     device."""

@@ -25,12 +25,15 @@ and the two planar-ambiguity completions of Q.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 
 from repas_tpu_torch.core.consts import const
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import (homography_from_unit_square,
                                              rodrigues, rodrigues_inv, skew)
 from repas_tpu_torch.kernels.project import project_points, undistort_points
@@ -192,12 +195,17 @@ def solve_pnp_ippe_square(img_corners: torch.Tensor, K: torch.Tensor,
     return rodrigues(rv), t, err
 
 
+@functools.partial(jit, static_argnames=("tag_size_m",))
 def detector_pose(img_corners: torch.Tensor, K: torch.Tensor,
                   tag_size_m: float):
     """The AprilTag library's homography pose: both IPPE branches of the
     corners' homography, no distortion model and no polish, the branch
     with t_z > 0 and the lower reprojection error winning. Corners
-    (...,4,2) -> (R (...,3,3), t (...,3), err_px (...))."""
+    (...,4,2) -> (R (...,3,3), t (...,3), err_px (...)).
+
+    A compiled step (``core.jit``). ``tag_size_m``, which the reference
+    traces, is static here, as in ``TagTracker._ippe``: it keys the
+    object points' cached constant (ROADMAP C)."""
     K = K.to(img_corners.dtype)
     obj = square_object_points(tag_size_m, img_corners.device).to(
         img_corners.dtype)

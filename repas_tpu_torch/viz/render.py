@@ -28,12 +28,21 @@ compute:
   port picks exactly that point, on every device, with one ``amax``
   scatter of the int32 key ``offset_index * N + point_index`` and one
   gather of its colour, so the card's image is deterministic too.
+
+``render_pointcloud`` is a compiled step (``core.jit``: on the card one
+CUDA graph per point count, ``shape`` and ``splat``). ``background`` and
+``z_near`` are 0-d tensors in it, and a numpy camera (``K``, ``R``,
+``t``) is copied to the points' device before the step, so every view
+replays the same graph with its own camera.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.kernels.image import _fma
 
 
@@ -121,6 +130,9 @@ def _last_writer(keys: torch.Tensor, idx: torch.Tensor, n_pix: int
     return best.scatter_reduce_(0, idx, keys, "amax")
 
 
+@functools.partial(jit, static_argnames=("shape", "splat"),
+                   scalar_argnames=("background", "z_near"),
+                   array_argnames=("K", "R", "t"))
 def render_pointcloud(xyzrgb: torch.Tensor, K, R, t,
                       shape: tuple = (720, 1280), splat: int = 2,
                       background: float = 1.0,
@@ -159,7 +171,7 @@ def render_pointcloud(xyzrgb: torch.Tensor, K, R, t,
     best = _last_writer(torch.cat(keys), torch.cat(slots), H * W)
     img = torch.where((best >= 0)[:, None],
                       rgb[(torch.clamp(best, min=0) % n).long()],
-                      float(background))
+                      background)
     return img.reshape(H, W, 3)
 
 
