@@ -56,7 +56,28 @@
    compiled step held against its eager function (compiled_leaf, below),
    the alignment also given its numpy camera (a replay of the same
    graph);
-7. the registration phase (repas_tpu_torch.cloud, compiled: each stage
+7. the compiled_pose phase (the last seven jax.jit sites, each a compiled
+   step beside its plain function, and kernel K3, SQPnP's 9x9 eigh): on
+   the bench frame at batch 16, detect_tags_jit on the packed gray frame
+   (B1 and B2 in a replay's trace, tag 9 in every frame),
+   fuse_tag_poses_jit without and with the 8-order search (anchor z
+   within 5 mm of 0.45 m), solve_pnp_best_order_jit,
+   solve_pnp_ippe_square_jit and refine_pnp_gn_jit on the detections'
+   corners (error under 1 px and t_z > 0 on the valid slots), each
+   against its eager function (compiled_leaf); solve_tag_bundle_jit on
+   the bundle's 3-tag layout with its masked slot and
+   solve_pnp_sqpnp_jit on 16 non-coplanar problems, against the CPU port
+   (R within 0.01 degrees and t within 0.1 mm, or 0.3 degrees and 0.5 mm
+   where the reprojection errors differ by over 1e-4 px: another
+   candidate won), the eager calls' synchronising calls with cuSOLVER's
+   solves and with K2/K3, the launch counts set to 0 just before them
+   (K2 and K3 launched), K2 and K3 in a replay's trace and no cuSOLVER
+   kernel; K3 against its plain version (check_k3) at (1,9,9) (the
+   bundle's Omega and its DLT's float64 Gram), (16,9,9) and (4096,9,9),
+   timed behind a spin kernel beside its bound and torch.linalg.eigh;
+   K2 against its plain version (check_k2_pnp) on the seeds the bundle
+   and the batch project to SO(3); every graph is dropped at the end;
+8. the registration phase (repas_tpu_torch.cloud, compiled: each stage
    of register_clouds a captured graph, ICP's loop one WHILE graph node;
    kernels K1, the 3x3 eigh, and K2, the Kabsch rotation): (a)
    register_clouds on the JAX bench's 1M-point scene (bench.py's bumpy
@@ -90,7 +111,7 @@
    normals, peak memory (under 40 GB); then its stages on the card
    against the CPU on one sample, and the tag-anchored crop around the
    frame's fused pose;
-8. the cad_chain phase: the port's six CLIs (repas_tpu_torch.apps), called
+9. the cad_chain phase: the port's six CLIs (repas_tpu_torch.apps), called
    in-process on the card on one 1280x720 capture written under a
    temporary directory (PNGs from the standard library's zlib, so the log
    names the codec that decoded them): generate_pointcloud (5 mm voxels,
@@ -103,10 +124,11 @@
    (median), place_cad's ICP (fitness > 0.9, under 1 degree and 5 mm),
    the known motion recovered, every STL non-empty and the Poisson meshes
    on the crop, the sidecars' kinds, B1 and B2 launched by crop_scene and
-   place_cad and held exactly against their plain versions on the
-   phase's first inputs; then the Poisson grid, refine_with_icp on one
+   place_cad (counted in their warm calls, which capture the compiled
+   detector and fusion anew) and held exactly against their plain
+   versions on the phase's first inputs; then the Poisson grid, refine_with_icp on one
    normals sample and ball pivoting on the card against the CPU;
-9. the canopy_calib_eval phase (canopy/, calib/, eval/ and their CLIs;
+10. the canopy_calib_eval phase (canopy/, calib/, eval/ and their CLIs;
    no kernel of their own, B1-B4 counted: none launched), under 90 s:
    (a) measure_plant_height on a 1280x720 canopy capture (a bar tilted 6
    degrees, a plant whose top is a 2 px leaf tip, u16 depth) on the card:
@@ -137,19 +159,24 @@
    point_to_mesh_distances likewise on the first 30,000 points, equal to
    the signed distances' magnitudes; error_report surface once with --txt
    and --colored-out (a replay); the two graphs are then dropped;
-10. the apps_stream phase (the stream, pose, capture, fusion and viewing
+11. the apps_stream phase (the stream, pose, capture, fusion and viewing
    CLIs, the splat renderer and the frame mesh): a 1280x720 replay
    stream of 8 frames (tags 9 and 16 on a plane at 0.5 m, the camera
    moving 2 and 1 mm a frame) and a second view turned 25 degrees,
    written as color_<ts>.png + aligned_depth_<ts>.png; the ten CLIs
    track_stream (default, --robust, --temporal), detect_tags,
-   estimate_pose, validate_pose translation, align_depth,
+   estimate_pose (also --layout: one SQPnP bundle over tag 16, its pose
+   within 1 degree and 5 mm of the truth), validate_pose translation,
+   align_depth,
    capture_aligned --colorize, fetch_intrinsics, pack_replay --colorize,
    fuse_views and view_pointcloud --splat, in-process on the card, each
-   timed after one warm call with B1-B4's launches counted around it
-   (every compiled step captured anew in the warm calls), then each
-   track_stream call once more under torch.profiler, whose trace counts
-   the launches inside the tracker's graphs too; B1, B2 and B3 must
+   timed after one warm call with B1-B4's wrapper launches counted
+   around it (every compiled step captured anew in the warm calls; a
+   replayed graph's launches are not the wrappers'), then each CLI that
+   replays compiled steps (the three track_stream calls, detect_tags,
+   both estimate_pose calls, validate_pose and fuse_views) once more
+   under torch.profiler, whose trace counts the launches inside their
+   graphs too (the device's count less the wrappers'); B1, B2 and B3 must
    launch on the device in track_stream and B4 in track_stream
    --robust (its trace) or fuse_views, and each is held exactly against
    its plain
@@ -168,7 +195,7 @@
    port's, the image differing at most at tied pixels);
    sharded_frame_pipeline(process_frames) over
    the card named twice at batch 16 equal to the unsharded step;
-11. the tools phase (repas_tpu_torch.tools, the port of the JAX repo's
+12. the tools phase (repas_tpu_torch.tools, the port of the JAX repo's
    measurement tools, and kernels B5/B6 of tools/micro_perf.py), with the
    launch counts set to 0 before it: profile_stages --iters 3 (the 11
    stage prefixes, detect_tags, the point cloud and the pipeline at
@@ -183,7 +210,7 @@
    and the one PyTorch indexing call that computes them (as for B2);
    B6 on micro_perf's pyramid at negative, past-the-edge and edge starts,
    exact and on the TMA path; the phase's seconds;
-12. the graft_entry phase (repas_tpu_torch.graft_entry, the port of the
+13. the graft_entry phase (repas_tpu_torch.graft_entry, the port of the
    JAX repo's __graft_entry__.py): (a) entry() on the card, one warm
    call, then one call with synchronizing CUDA calls turned into errors
    and B1-B3's launches counted (each >= 1); tag 9 found, anchor z
@@ -195,7 +222,7 @@
    (devices ["cpu"] * n), B1-B3 launched by each, its seconds.
    tools/canopy_reference_parity.py's port is host-only cv2 code and is
    not run here (the card's machine may have no cv2);
-13. the compiled phase (repas_tpu_torch.core.jit, the port's counterpart
+14. the compiled phase (repas_tpu_torch.core.jit, the port's counterpart
    of jax.jit: a step captured as a CUDA graph and replayed): (a)
    pipeline.process_frames_jit at batch 16 on the bench frame and (b)
    on the calibrated phase's scene with the lens's coefficients, each
@@ -226,7 +253,7 @@
    outputs equal to the eager sharded step and the unsharded one, a
    replay without wrapper launches under sync-error mode, B1-B3 n times
    in a traced call, ms against the unsharded step eager and compiled;
-14. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
+15. the bench phase (repas_tpu_torch.bench, the port of the JAX repo's
    bench.py): its headline loop in-process (_time_pipeline at batch 16,
    the compiled step: a gated warm call that captures, then 10 queued
    calls with synchronizing CUDA calls turned into errors; the wrappers
@@ -242,11 +269,12 @@
    roundings), robust_tags_found 7, registration_1m_status "ok", device
    equal to the card's line; the host's CPU count and the phase's
    seconds;
-15. prints one JSON line of kernel results (B1-B6, K1 and K2, with each
+16. prints one JSON line of kernel results (B1-B6, K1-K3, with each
    kernel's launches in the canopy_calib_eval, apps_stream, tools,
    graft_entry and bench phases, as the wrappers count them; K1 and K2
    with their launches in the registration phase's capturing call and
-   in its traced replay; B1-B3 also with their launches inside replayed
+   in its traced replay, K3 with its launches in the compiled_pose
+   phase's compiled bundle and SQPnP and in their traced replays; B1-B3 also with their launches inside replayed
    graphs in the apps_stream, compiled and bench phases, as the traces
    count them; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
@@ -348,13 +376,15 @@ REG_SYNC_LIMIT = 8             # synchronising calls of a compiled call
 REG_TURNS = 3                  # compiled and eager calls, in turns
 ICP_BOUND_ITERS = 8            # max_iters of the ICP run that reaches it
 EIGH_BATCH = 16384             # cuSOLVER's eigh refuses 32,768 3x3 (C11)
-# float64 operations of K1 (csrc/eig3.cu) per Jacobi sweep (three
-# rotations of 44 and the off-diagonal test) and per matrix outside the
-# sweeps (norms, sort); of K2 (csrc/kabsch3.cu) per sweep (three column
-# rotations of 70) and per matrix (norms, sort, u1, u2, u3, two
-# determinants, R); an FMA counts two
-EIG3_OPS_PER_SWEEP, EIG3_OPS_FIXED = 138, 22
-KABSCH3_OPS_PER_SWEEP, KABSCH3_OPS_FIXED = 210, 111
+# operations a matrix of what K1-K3's functions need, whatever the
+# algorithm and however many sweeps the kernel's Jacobi takes (Golub and
+# Van Loan's counts, an FMA two): a symmetric eigh with its eigenvectors
+# 9 n^3 (the tridiagonal reduction, its Q and the implicit QR), so K1
+# 243 (n = 3) and K3 6,561 (n = 9); K2 the 3x3 SVD with both factors,
+# 21 n^3 (the R-SVD), and the product V diag(1, 1, d) U^T, 2 n^3: 621
+EIG3_OPS = 9 * 3 ** 3
+KABSCH3_OPS = 23 * 3 ** 3
+EIG9_OPS = 9 * 9 ** 3
 CAPTURE_VOXEL = 0.005
 CAPTURE_BOX = 0.1              # +-0.1 m around the tag, every axis
 # cad_chain phase: one 1280x720 capture at the bench intrinsics: 60 mm
@@ -1476,6 +1506,439 @@ def front_end_phase(dev, gpu_line):
          "gpu": gpu_line})
 
 
+# --- compiled_pose: the last seven jax.jit sites as compiled steps beside
+# their plain functions, and kernel K3 (SQPnP's 9x9 eigh) -----------------
+POSE_SQPNP_N = 16              # one problem per frame of a batch-16 step
+POSE_SQPNP_POINTS = 12
+K3_BOUND_N = 4096              # K3's matrices for its bound
+K3_SRC = ("repas_tpu_torch/kernels/csrc/eig9.cu",
+          "repas_tpu/pose/pnp.py:424")
+# cuSOLVER's kernels behind torch.linalg's eigh, svd, det and solve
+CUSOLVER_NAMES = ("syevj", "syevd", "gesvd", "getrf", "potrf", "geqrf")
+SQPNP_DEG, SQPNP_M = 0.01, 1e-4            # the card against the CPU port
+SQPNP_OTHER_DEG, SQPNP_OTHER_M = 0.3, 5e-4  # where another candidate wins
+
+
+def sqpnp_problems(n, seed=0):
+    """n non-coplanar PnP problems on the CPU: object points (n,12,3)
+    within 0.1 m, 0.4-1.5 m from the camera, pixels (n,12,2) through
+    ROBUST_K under 0.3 px of noise; returns (obj, img, K)."""
+    from repas_tpu_torch.kernels.project import project_points
+
+    rng = np.random.default_rng(seed)
+    K = torch.from_numpy(ROBUST_K.astype(np.float32))
+    obj = torch.from_numpy(rng.uniform(-0.1, 0.1, (n, POSE_SQPNP_POINTS, 3))
+                           .astype(np.float32))
+    rv = torch.from_numpy(rng.normal(0, 0.3, (n, 3)).astype(np.float32))
+    t = torch.from_numpy(np.stack([rng.uniform(-0.2, 0.2, n),
+                                   rng.uniform(-0.15, 0.15, n),
+                                   rng.uniform(0.4, 1.5, n)], 1)
+                         .astype(np.float32))
+    img = project_points(obj, rv, t, K) + torch.from_numpy(
+        rng.normal(0, 0.3, (n, POSE_SQPNP_POINTS, 2)).astype(np.float32))
+    return obj, img, K
+
+
+@contextlib.contextmanager
+def cusolver_sqpnp():
+    """solve_pnp_sqpnp's solves as the torch.linalg calls the port made
+    before K3 (cuSOLVER on the card, each reading a status on the host):
+    the 3x3 solve, Omega's eigh, the DLT's SVD and the SVD projection to
+    SO(3)."""
+    from repas_tpu_torch.pose import pnp
+
+    saved = (pnp._chol_solve, pnp._eigh9, pnp._dlt_null_vector,
+             pnp._nearest_rotation)
+
+    def solve(A, B):
+        return torch.linalg.solve(A, B) if A.shape[-1] == 3 else \
+            saved[0](A, B)
+
+    def null_vector(Ah):
+        return torch.linalg.svd(Ah, full_matrices=False)[2][..., -1, :]
+
+    def nearest(M):
+        U, _, Vt = torch.linalg.svd(M)
+        d = torch.sign(torch.linalg.det(U @ Vt))
+        D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+        return (U * D[..., None, :]) @ Vt
+
+    (pnp._chol_solve, pnp._eigh9, pnp._dlt_null_vector,
+     pnp._nearest_rotation) = solve, torch.linalg.eigh, null_vector, nearest
+    try:
+        yield
+    finally:
+        (pnp._chol_solve, pnp._eigh9, pnp._dlt_null_vector,
+         pnp._nearest_rotation) = saved
+
+
+@contextlib.contextmanager
+def pnp_inputs():
+    """Records the matrices solve_pnp_sqpnp hands K3's and K2's wrappers
+    ({"eig9": [...], "kabsch3": [...]}, clones in call order: K3 Omega,
+    then the DLT's float64 Gram; K2 the transposed Omega seeds, then the
+    homography seeds)."""
+    from repas_tpu_torch.pose import pnp
+
+    seen = {"eig9": [], "kabsch3": []}
+    saved = {k: getattr(pnp, k) for k in seen}
+
+    def recorder(key):
+        def rec(A, *a, **k):
+            seen[key].append(A.clone())
+            return saved[key](A, *a, **k)
+        return rec
+
+    for key in seen:
+        setattr(pnp, key, recorder(key))
+    try:
+        yield seen
+    finally:
+        for key, fn in saved.items():
+            setattr(pnp, key, fn)
+
+
+def check_k3(name, A, timed=True):
+    """K3 against its plain version (torch.linalg.eigh, cuSOLVER) on the
+    card, on A (N,9,9): the plain version in float64 on the same values:
+    eigenvalues within 1e-5 (float32 input; 1e-12 for float64) of the
+    largest |eigenvalue|, eigenvectors up to sign, 1 - |v.v'| within 1e-6
+    (1e-10) where the eigenvalue's gap to its neighbours is over 1e-4 of
+    the largest; the same call in A's type (today's): eigenvalues within
+    1e-5, vectors within 1e-5 where the gap is over 1e-3 (a float32
+    solver errs by ulps of |A| over the gap); |AV - VL| within 1e-5 |A|
+    and V orthonormal within 1e-5 everywhere (the degenerate subspaces
+    too). Then kernel and plain ms (CUDA events). Returns (the record's
+    numbers, ms, plain_ms)."""
+    from repas_tpu_torch.kernels.eig9 import eig9, eig9_plain
+
+    n = A.shape[0]
+    f64 = A.dtype == torch.float64
+    w, V = eig9(A)
+    sweeps = torch.zeros(n, dtype=torch.int32, device=A.device)
+    eig9(A, sweeps=sweeps)
+    w64, V64 = eig9_plain(A.double())
+    wp, Vp = eig9_plain(A)
+    torch.cuda.synchronize()
+    top = w64.abs().amax(1, keepdim=True) + 1e-300
+    d = (w64[:, 1:] - w64[:, :-1]) / top
+    inf = torch.full((n, 1), float("inf"), dtype=torch.float64,
+                     device=A.device)
+    gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
+    vec64 = 1 - (V.double() * V64).sum(1).abs()
+    vecp = 1 - (V.double() * Vp.double()).sum(1).abs()
+    Ad, Vd = A.double(), V.double()
+    res = (Ad @ Vd - Vd * w.double()[:, None, :]).norm(dim=(1, 2)) / (
+        Ad.norm(dim=(1, 2)) + 1e-300)
+    eye = torch.eye(9, dtype=torch.float64, device=A.device)
+
+    def worst(x, sel):
+        return float(x[sel].max()) if bool(sel.any()) else 0.0
+
+    out = {"matrices": n, "dtype": str(A.dtype).split(".")[-1],
+           "eigval_rel_err_f64": float(((w.double() - w64).abs()
+                                        / top).max()),
+           "eigval_rel_err_plain": float(((w.double() - wp.double()).abs()
+                                          / top).max()),
+           "eigval_abs_err_plain": float((w.double() - wp.double())
+                                         .abs().max()),
+           "gap_over_1e-4": int((gap > 1e-4).sum()),
+           "vec_err_f64": worst(vec64, gap > 1e-4),
+           "vec_err_plain": worst(vecp, gap > 1e-3),
+           "residual_rel_max": float(res.max()),
+           "orthonormal_err": float((Vd.mT @ Vd - eye).abs().max()),
+           "sweeps": torch.bincount(sweeps).tolist()}
+    if not (out["eigval_rel_err_f64"] <= (1e-12 if f64 else 1e-5)
+            and out["eigval_rel_err_plain"] <= 1e-5
+            and out["vec_err_f64"] <= (1e-10 if f64 else 1e-6)
+            and out["vec_err_plain"] <= 1e-5
+            and out["residual_rel_max"] <= 1e-5
+            and out["orthonormal_err"] <= 1e-5
+            and int(sweeps.max()) <= 16):
+        raise AssertionError(f"{name} against its plain version: {out}")
+    ms = cuda_ms(lambda: eig9(A), queued=True) if timed else None
+    plain_ms = cuda_ms(lambda: eig9_plain(A)) if timed else None
+    log({"kernel": name, "input_shape": list(A.shape), **out, "ms": ms,
+         "plain_ms": plain_ms})
+    return out, ms, plain_ms
+
+
+def check_k2_pnp(name, H):
+    """K2 against its plain version on the (N,3,3) matrices SQPnP hands
+    it (the transposes of the seeds it projects to SO(3)), the plain
+    version in float64 on the same values: R within 1e-5 where the
+    nearest rotation is determined, (sigma2 + sigma3) / sigma1 > 1e-6 and,
+    where det H < 0, (sigma2 - sigma3) / sigma1 > 1e-6 too (the flipped
+    axis is the smallest singular vector, free where sigma2 = sigma3, as
+    for a sign-flipped seed -R / sqrt(3)), and sigma3 / sigma1 > 1e-9
+    (below it the sign of det H is rounding, as for the rank-deficient
+    seeds of a coplanar layout); on every matrix the Kabsch
+    objective tr(R H) within 1e-6 (sigma1 + sigma2 + sigma3) of the
+    plain version's (its maximum, which a free axis does not change),
+    det R = 1 and R^T R = I within 1e-5. Returns the numbers."""
+    from repas_tpu_torch.kernels.kabsch3 import kabsch3, kabsch3_plain
+
+    n = H.shape[0]
+    R = kabsch3(H).double()
+    Hd = H.double()
+    R64 = kabsch3_plain(Hd)
+    s = torch.linalg.svdvals(Hd)
+    torch.cuda.synchronize()
+    top = s[:, 0] + 1e-300
+    gap = torch.where(torch.linalg.det(Hd) < 0,
+                      torch.minimum(s[:, 1] + s[:, 2], s[:, 1] - s[:, 2]),
+                      s[:, 1] + s[:, 2]) / top
+    fixed = (gap > 1e-6) & (s[:, 2] / top > 1e-9)
+    dR = (R - R64).abs().amax(dim=(1, 2))
+    obj = ((R * Hd.mT).sum((1, 2)) - (R64 * Hd.mT).sum((1, 2))).abs() \
+        / (s.sum(1) + 1e-300)
+    eye = torch.eye(3, dtype=torch.float64, device=H.device)
+    out = {"matrices": n, "determined": int(fixed.sum()),
+           "dR_max_determined": float(dR[fixed].max())
+           if bool(fixed.any()) else 0.0,
+           "dR_max_all": float(dR.max()),
+           "objective_rel_err_max": float(obj.max()),
+           "det_err_max": float((torch.linalg.det(R) - 1).abs().max()),
+           "orthonormal_err": float((R.mT @ R - eye).abs().max())}
+    if not (out["dR_max_determined"] <= 1e-5
+            and out["objective_rel_err_max"] <= 1e-6
+            and out["det_err_max"] <= 1e-5
+            and out["orthonormal_err"] <= 1e-5):
+        raise AssertionError(f"{name} against its plain version: {out}")
+    log({"kernel": name, "input_shape": list(H.shape), **out})
+    return out
+
+
+def pose_vs_cpu(R, t, e, Rc, tc, ec, what):
+    """Per problem: R's angle (degrees) and t's largest difference (m)
+    against the CPU port; the first bound where the reprojection errors
+    agree within 1e-4 px, the second where they do not (another candidate
+    won on one side). Returns the numbers."""
+    R, t, e = R.cpu().double(), t.cpu().double(), e.cpu().double()
+    Rc, tc, ec = Rc.double(), tc.double(), ec.double()
+    Rr = R.mT @ Rc
+    w = torch.stack([Rr[..., 2, 1] - Rr[..., 1, 2], Rr[..., 0, 2]
+                     - Rr[..., 2, 0], Rr[..., 1, 0] - Rr[..., 0, 1]], -1) / 2
+    ang = torch.rad2deg(torch.atan2(w.norm(dim=-1), (Rr.diagonal(
+        dim1=-2, dim2=-1).sum(-1) - 1) / 2)).reshape(-1)
+    dt = (t - tc).abs().reshape(-1, 3).amax(-1)
+    same = ((e - ec).abs() <= 1e-4).reshape(-1)
+    out = {"R_max_deg": float(ang.max()), "t_max_m": float(dt.max()),
+           "err_max_px": float(e.max()), "other_candidate": int((~same)
+                                                                .sum())}
+    ok = torch.where(same, (ang <= SQPNP_DEG) & (dt <= SQPNP_M),
+                     (ang <= SQPNP_OTHER_DEG) & (dt <= SQPNP_OTHER_M))
+    if not bool(ok.all()) or out["err_max_px"] > 1.0:
+        raise AssertionError(f"{what} on the card vs the CPU port: {out}")
+    return out
+
+
+def compiled_pose_phase(dev, gpu_line, rgbs, depths, K):
+    """The last seven jax.jit sites as compiled steps (compiled_leaf each,
+    against its eager function) on the 720p bench frame at batch 16: the
+    detector on the packed gray frame (B1 and B2 in a replay's trace),
+    fusion without and with the 8-order search, best order, IPPE and the
+    LM on the detections' corners; the tag bundle (bundle_phase's layout,
+    one masked slot) and SQPnP on 16 non-coplanar problems, both against
+    the CPU port, the eager call's synchronising calls with cuSOLVER's
+    solves and with K2/K3, K2 and K3 in a replay's trace and no cuSOLVER
+    kernel; K3 against its plain version at (1,9,9) (the bundle's Omega
+    and DLT Gram), (16,9,9) and (4096,9,9), timed beside its bound and
+    torch.linalg.eigh; K2 against its plain version on the seeds the
+    bundle and the batch project to SO(3), (6,3,3) and (1,3,3), (96,3,3)
+    and (16,3,3). Every graph is dropped at the end. Returns K3's
+    record."""
+    from repas_tpu_torch.core.config import PipelineConfig
+    from repas_tpu_torch.core.jit import clear_caches
+    from repas_tpu_torch.core.transforms import rodrigues_inv
+    from repas_tpu_torch.detect.detector import detect_tags_jit
+    from repas_tpu_torch.kernels import _build
+    from repas_tpu_torch.kernels.image import gray_from_u32, pack_rgb_u32
+    from repas_tpu_torch.kernels.pointcloud import depth_to_meters
+    from repas_tpu_torch.kernels.project import project_points
+    from repas_tpu_torch.pose import pnp
+    from repas_tpu_torch.pose.bundle import solve_tag_bundle_jit
+    from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
+
+    t0 = time.perf_counter()
+    cfg = PipelineConfig()
+    tag = cfg.pnp.tag_size_m
+    gray = gray_from_u32(pack_rgb_u32(rgbs))
+    depth_m = depth_to_meters(depths, cfg.depth.depth_scale)
+    summary = {}
+
+    # the detector: B1 and B2 inside its graph
+    det, summary["detect_tags_jit"] = compiled_leaf(
+        "detect_tags_jit", [("detect_tags_jit", detect_tags_jit)],
+        lambda: detect_tags_jit(gray, cfg.detector))
+    _, counts, device, _ = traced(lambda: detect_tags_jit(gray,
+                                                          cfg.detector))
+    if any(counts.values()) or device["ccl"] < 1 or \
+            device["patch_extract"] < 1:
+        raise AssertionError(f"detect_tags_jit replay: wrappers {counts}, "
+                             f"device {device}")
+    summary["detect_tags_jit"]["replay_device_launches"] = device
+    if not bool(((det.ids == TAG_ID) & det.valid).any(-1).all()):
+        raise AssertionError(f"detect_tags_jit ids {det.ids.tolist()}")
+
+    # fusion, with the corners' known order and with the 8-order search
+    for orders in (False, True):
+        name = "fuse_tag_poses_jit" + ("_all_orders" if orders else "")
+        fused, summary[name] = compiled_leaf(
+            name, [(name, fuse_tag_poses_jit)],
+            lambda orders=orders: fuse_tag_poses_jit(
+                det.corners, det.ids, det.areas, det.valid, depth_m, K, tag,
+                anchor_id=cfg.anchor_id,
+                flip_z_ids=cfg.cad.flip_z_tag_ids, win=cfg.depth.center_win,
+                try_all_orders=orders))
+        z = fused.anchor_P_depth[:, 2].cpu()
+        if not bool(((z - TAG_Z).abs() <= 0.005).all()):
+            raise AssertionError(f"{name}: anchor z {z.tolist()}")
+
+    # best order, IPPE and the LM on the detections' corners (every slot;
+    # an empty slot's degenerate corners give NaN, as eager)
+    corners = det.corners
+    valid = det.valid
+    (_, t_bo, e_bo, _), summary["solve_pnp_best_order_jit"] = compiled_leaf(
+        "solve_pnp_best_order_jit",
+        [("solve_pnp_best_order_jit", pnp.solve_pnp_best_order_jit)],
+        lambda: pnp.solve_pnp_best_order_jit(corners, K, tag))
+    (R_ip, t_ip, e_ip), summary["solve_pnp_ippe_square_jit"] = \
+        compiled_leaf("solve_pnp_ippe_square_jit",
+                      [("solve_pnp_ippe_square_jit",
+                        pnp.solve_pnp_ippe_square_jit)],
+                      lambda: pnp.solve_pnp_ippe_square_jit(corners, K, tag))
+    obj = pnp.square_object_points(tag, dev)
+    rv0 = rodrigues_inv(R_ip) + 0.02
+    (_, t_lm, e_lm), summary["refine_pnp_gn_jit"] = compiled_leaf(
+        "refine_pnp_gn_jit", [("refine_pnp_gn_jit", pnp.refine_pnp_gn_jit)],
+        lambda: pnp.refine_pnp_gn_jit(obj, corners, rv0, t_ip + 0.005, K))
+    for what, t_, e_ in (("best order", t_bo, e_bo), ("IPPE", t_ip, e_ip),
+                         ("LM", t_lm, e_lm)):
+        if not bool(((e_ < 1.0) & (t_[..., 2] > 0))[valid].all()):
+            raise AssertionError(f"{what} on the valid slots: errors "
+                                 f"{e_[valid].tolist()}")
+    summary["pnp_valid_slots"] = int(valid.sum())
+    summary["pnp_err_max_px"] = {"best_order": float(e_bo[valid].max()),
+                                 "ippe": float(e_ip[valid].max()),
+                                 "lm": float(e_lm[valid].max())}
+
+    # the tag bundle (bundle_phase's layout) and SQPnP on 16 problems
+    Kb = torch.from_numpy(ROBUST_K.astype(np.float32))
+    rvec = torch.tensor([0.21, -0.3, 0.08])
+    tb = torch.tensor([0.05, -0.03, 0.7])
+    centers = torch.tensor([[0.0, 0.0, 0.0], [0.12, 0.0, 0.0],
+                            [0.0, 0.10, 0.0], [9.9, 9.9, 0.0]])
+    h = TRACK_TAG / 2
+    offs = torch.tensor([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]])
+    bc = project_points(centers[:, None] + offs, rvec, tb, Kb)
+    bpx = project_points(centers, rvec, tb, Kb)
+    bc[3], bpx[3] = 0.0, 0.0                   # the masked slot: garbage
+    bvalid = torch.tensor([True, True, True, False])
+    b_cpu = solve_tag_bundle_jit(bc, bpx, bvalid, centers, TRACK_TAG, Kb)
+    b_args = (bc.to(dev), bpx.to(dev), bvalid.to(dev), centers.to(dev))
+    obj_s, img_s, Ks = sqpnp_problems(POSE_SQPNP_N)
+    s_cpu = pnp.solve_pnp_sqpnp_jit(obj_s, img_s, Ks)
+    s_args = (obj_s.to(dev), img_s.to(dev), Ks.to(dev))
+
+    Kbd = Kb.to(dev)
+
+    def bundle():
+        return solve_tag_bundle_jit(*b_args, TRACK_TAG, Kbd)
+
+    def sqpnp():
+        return pnp.solve_pnp_sqpnp_jit(*s_args)
+
+    syncs = {}
+    for name, fn in (("bundle", solve_tag_bundle_jit.fn),
+                     ("sqpnp", pnp.solve_pnp_sqpnp_jit.fn)):
+        args = (*b_args, TRACK_TAG, Kb.to(dev)) if name == "bundle" \
+            else s_args
+        with cusolver_sqpnp():
+            fn(*args)
+            syncs[f"{name}_eager_cusolver"] = len(syncs_of(
+                lambda: fn(*args))[1])
+        fn(*args)
+        syncs[f"{name}_eager"] = len(syncs_of(lambda: fn(*args))[1])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (R_b, t_b, e_b), summary["solve_tag_bundle_jit"] = compiled_leaf(
+        "solve_tag_bundle_jit",
+        [("solve_tag_bundle_jit", solve_tag_bundle_jit)], bundle)
+    (R_s, t_s, e_s), summary["solve_pnp_sqpnp_jit"] = compiled_leaf(
+        "solve_pnp_sqpnp_jit",
+        [("solve_pnp_sqpnp_jit", pnp.solve_pnp_sqpnp_jit)], sqpnp)
+    torch.cuda.synchronize()
+    launches = {k: _build.launches[k] for k in ("eig9", "kabsch3")}
+    if launches["eig9"] < 1 or launches["kabsch3"] < 1:
+        raise AssertionError(f"the bundle and SQPnP launched {launches}")
+    vs_cpu = {"bundle": pose_vs_cpu(R_b, t_b, e_b, *b_cpu, "the bundle"),
+              "sqpnp": pose_vs_cpu(R_s, t_s, e_s, *s_cpu, "SQPnP")}
+    traces = {}
+    for name, fn in (("bundle", bundle), ("sqpnp", sqpnp)):
+        _, counts, _, names = traced(fn)
+        low = [n.lower() for n in names]
+        traces[name] = {
+            "eig9": sum("eig9" in n for n in low),
+            "kabsch3": sum("kabsch3" in n for n in low),
+            "cusolver": sorted({n[:60] for n in low
+                                if any(c in n for c in CUSOLVER_NAMES)}),
+            "wrapper_launches": sum(counts.values())}
+        if traces[name]["eig9"] < 1 or traces[name]["kabsch3"] < 1 or \
+                traces[name]["cusolver"] or \
+                traces[name]["wrapper_launches"]:
+            raise AssertionError(f"{name} replay trace: {traces[name]}")
+
+    # K3 at the bundle's, the batch's and the bound's shapes; K2 at the
+    # bundle's and the batch's
+    with pnp_inputs() as seen_b:
+        solve_tag_bundle_jit.fn(*b_args, TRACK_TAG, Kb.to(dev))
+    with pnp_inputs() as seen_s:
+        pnp.solve_pnp_sqpnp_jit.fn(*s_args)
+    obj_n, img_n, Kn = sqpnp_problems(K3_BOUND_N, seed=1)
+    with pnp_inputs() as seen_n:
+        pnp.solve_pnp_sqpnp_jit.fn(obj_n.to(dev), img_n.to(dev), Kn.to(dev))
+    small = {}
+    for what, A in (("bundle Omega", seen_b["eig9"][0]),
+                    ("bundle DLT Gram", seen_b["eig9"][1]),
+                    ("SQPnP batch Omega", seen_s["eig9"][0])):
+        out, ms, plain_ms = check_k3(f"K3 eig9 ({what})", A)
+        small[what] = {"shape": list(A.shape), "dtype": out["dtype"],
+                       "ms": ms, "plain_ms": plain_ms,
+                       "sweeps": out["sweeps"]}
+    k2_pnp = {}
+    for who, seen in (("bundle", seen_b), ("SQPnP batch", seen_s)):
+        if len(seen["kabsch3"]) != 2:
+            raise AssertionError(f"{who}: K2 called {len(seen['kabsch3'])} "
+                                 "times, not 2 (the Omega and homography "
+                                 "seeds)")
+        for what, H in zip(("Omega seeds", "homography seeds"),
+                           seen["kabsch3"]):
+            k2_pnp[f"{who} {what}"] = check_k2_pnp(
+                f"K2 kabsch3 ({who} {what})", H)
+    A = seen_n["eig9"][0]
+    out, ms, plain_ms = check_k3("K3 eig9 (bound)", A)
+    n = A.shape[0]
+    rec = record("K3 eig9", K3_SRC, (out["eigval_abs_err_plain"], ms,
+                                     plain_ms), n * (81 + 9 + 81) * 4,
+                 n * EIG9_OPS, F64_OPS_PER_S, "torch.linalg.eigh (cuSOLVER), which is "
+                 "also the plain version", library_ms=plain_ms)
+    rec["launches"] = launches["eig9"]
+    rec["replaces_note"] = ("no Pallas kernel: jnp.linalg.eigh and "
+                            "jnp.linalg.svd inside the jitted "
+                            "solve_pnp_sqpnp")
+    rec["input_shape"] = list(A.shape)
+    rec["at_other_shapes"] = small
+    rec["replay_launches"] = {k: v["eig9"] for k, v in traces.items()}
+    clear_caches()
+    torch.cuda.empty_cache()
+    log({"phase": "compiled_pose", "steps": summary, "syncs": syncs,
+         "launches": launches, "vs_cpu": vs_cpu, "replay_traces": traces,
+         "k2_vs_plain": k2_pnp,
+         "phase_s": time.perf_counter() - t0, "gpu": gpu_line})
+    return [rec]
+
+
 def calibrated_tracking_phase(dev, gpu_line, records):
     """The calibrated-camera path and register-then-track streaming;
     returns the kernel records at the tracker's shapes."""
@@ -1686,9 +2149,8 @@ def check_k1(A, p, cam):
         raise AssertionError(f"K1 against its plain version: {out}")
     ms = cuda_ms(lambda: eig3(A), queued=True)
     plain_ms = cuda_ms(lambda: plain(A))
-    ops = int(sweeps.sum()) * EIG3_OPS_PER_SWEEP + n * EIG3_OPS_FIXED
     rec = record("K1 eig3", K1_SRC, (out["eigval_abs_err_f32"], ms,
-                                     plain_ms), n * (36 + 48), ops,
+                                     plain_ms), n * (36 + 48), n * EIG3_OPS,
                  F64_OPS_PER_S,
         "torch.linalg.eigh (cuSOLVER), 16,384 matrices a call: the plain "
         "version", library_ms=plain_ms)
@@ -1754,9 +2216,9 @@ def check_k2(H, ransac_args):
         return torch.linalg.det(Vh.mT @ U.mT)
 
     library_ms = cuda_ms(library)
-    ops = int(sweeps.sum()) * KABSCH3_OPS_PER_SWEEP + n * KABSCH3_OPS_FIXED
     rec = record("K2 kabsch3", K2_SRC, (out["dR_max_f32_r_1e-2"], ms,
-                                        plain_ms), n * (36 + 36), ops,
+                                        plain_ms), n * (36 + 36),
+                 n * KABSCH3_OPS,
                  F64_OPS_PER_S, "torch.linalg.svd then torch.linalg.det "
                  "of V U^T (cuSOLVER), the SVD and the sign the plain "
                  "version needs", library_ms=library_ms)
@@ -2341,13 +2803,16 @@ def nn_dist(a, b, chunk=4096):
 
 def cad_chain_apps(d):
     """The six CLIs on the capture in d, each timed after one warm call,
-    with B1's and B2's launches counted around the timed crop_scene and
-    place_cad. Returns (timings, launches, captured B1/B2 inputs, ICP
+    with B1's and B2's launches counted around the warm crop_scene and
+    place_cad calls, which capture the compiled detector and fusion
+    anew (the timed calls replay them). Returns (timings, launches, captured B1/B2 inputs, ICP
     timing, crop meta, placement meta, the crop rows the CAD took)."""
     from repas_tpu_torch.apps import (apply_6dof, crop_scene,
                                       generate_pointcloud, place_cad,
                                       ply_to_stl, refine_icp)
+    from repas_tpu_torch.detect.detector import detect_tags_jit
     from repas_tpu_torch.io.meta import read_meta
+    from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
     from repas_tpu_torch.io.ply import (PointCloud, read_geometry, write_ply,
                                         write_stl)
     from repas_tpu_torch.io.pose_txt import save_transform_txt
@@ -2358,16 +2823,20 @@ def cad_chain_apps(d):
     ms, launches, icp_calls = {}, {}, []
 
     def run(name, app, argv, counted=False):
-        app.main(argv)                                        # warm
+        if counted:
+            detect_tags_jit.clear()
+            fuse_tag_poses_jit.clear()
         torch.cuda.synchronize()
         _build.reset_launches()
+        app.main(argv)                                        # warm
+        torch.cuda.synchronize()
+        if counted:
+            launches[name] = {k: _build.launches[k]
+                              for k in ("ccl", "patch_extract")}
         t0 = time.perf_counter()
         app.main(argv)
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
-        if counted:
-            launches[name] = {k: _build.launches[k]
-                              for k in ("ccl", "patch_extract")}
 
     run("generate_pointcloud", generate_pointcloud,
         src + ["--out", str(d / "scene.ply"), "--voxel", "0.005",
@@ -2909,6 +3378,7 @@ def compiled_leaf(what, steps, call, reps=LEAF_TURNS, eager_trace=True):
     nbytes = graph_bytes(steps)
     out = {"first_call_s": first_s, "replays_per_call": replays[0],
            "sync_calls_around_replays": len(syncs),
+           "sync_messages": sorted(set(syncs))[:4],
            "graphs": {name: {
                "graphs": len(step.graphs),
                "capture_s": caps.get(step.name, []),
@@ -3505,6 +3975,12 @@ def apps_scene(d):
     (d / "K_depth.json").write_text(json.dumps(intr))
     (d / "d2c.json").write_text(json.dumps(
         {"R": np.eye(3).tolist(), "t": [0.015, 0.0, 0.0]}))
+    # estimate_pose --layout: tag 16 in a frame whose origin is the world's
+    # on the tag plane (tag 9 is mounted upside down, which a layout of
+    # centres cannot state); the first frame's camera sees it at R = I,
+    # t = (0, 0, CAD_Z)
+    (d / "layout.json").write_text(json.dumps(
+        {"16": [CAD_TAGS[16][0], CAD_TAGS[16][1], 0.0]}))
 
 
 def apps_runs(d, dev):
@@ -3534,6 +4010,9 @@ def apps_runs(d, dev):
         ("estimate_pose", estimate_pose,
          ["--color", str(c0), "--depth", str(d0), *K, *tag, "--json",
           str(d / "pose.json")]),
+        ("estimate_pose_layout", estimate_pose,
+         ["--color", str(c0), "--depth", str(d0), *K, *tag, "--layout",
+          str(d / "layout.json"), "--json", str(d / "pose_layout.json")]),
         ("validate_pose", validate_pose,
          ["translation", "--captures", str(d / "cap_first"),
           str(d / "cap_last"), *K, "--tag-size", str(APPS_VALIDATE_TAG),
@@ -3561,12 +4040,20 @@ def apps_runs(d, dev):
     ], ["--device", str(dev)]
 
 
+# the apps_stream CLIs that replay compiled steps: the tracker's,
+# detect_tags_robust's, detect_tags_jit, fuse_tag_poses_jit,
+# solve_tag_bundle_jit, solve_pnp_best_order_jit
+GRAPH_CLIS = ("track_stream", "track_stream_robust", "track_stream_temporal",
+              "detect_tags", "estimate_pose", "estimate_pose_layout",
+              "validate_pose", "fuse_views")
+
+
 def apps_stream_clis(d, dev):
     """Each CLI call warm, then timed with the launch counts reset just
-    before it, then each track_stream call once more traced. Returns (ms,
-    wrapper launches per call, the traced calls' device launches and
-    their launches inside graphs (device less wrapper), the B1-B4 inputs
-    first seen in the warm calls)."""
+    before it, then each CLI that replays compiled steps (GRAPH_CLIS) once
+    more traced. Returns (ms, wrapper launches per call, the traced calls'
+    device launches and their launches inside graphs (device less
+    wrapper), the B1-B4 inputs first seen in the warm calls)."""
     from repas_tpu_torch import pipeline
     from repas_tpu_torch.core.jit import clear_caches
     from repas_tpu_torch.kernels import (_build, ccl_cuda, ccl_tiled,
@@ -3593,10 +4080,10 @@ def apps_stream_clis(d, dev):
         torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(_build.launches)
-    # the tracker's steps and detect_tags_robust's pieces replay graphs:
-    # their kernels show in a trace
+    # the tracker's steps, detect_tags_robust's pieces and the _jit
+    # steps replay graphs: their kernels show in a trace
     for name, app, argv in runs:
-        if name.startswith("track_stream"):
+        if name in GRAPH_CLIS:
             _, wrapped, device[name], names = traced(
                 lambda: app.main(argv + devarg))
             device[name]["ccl_tiled"] = trace_counts(
@@ -3650,6 +4137,16 @@ def apps_stream_checks(d):
     if out["detect_ids"] != [9, 16] or out["pose_anchor_err_mm"] > 5.0:
         fails.append(f"detect_tags {out['detect_ids']}, estimate_pose "
                      f"anchor {out['pose_anchor_err_mm']} mm")
+    lay = json.loads((d / "pose_layout.json").read_text())
+    out["layout"] = {
+        "tags_used": lay["tags_used"], "err_px": lay["reproj_err_px"],
+        "R_err_deg": angle_deg(lay["R_world_to_camera"], np.eye(3)),
+        "t_err_mm": float(np.linalg.norm(np.subtract(
+            lay["t_world_to_camera"], [0.0, 0.0, CAD_Z]))) * 1000}
+    if lay["mode"] != "bundle" or lay["tags_used"] != [16] or \
+            out["layout"]["R_err_deg"] > 1.0 or \
+            out["layout"]["t_err_mm"] > 5.0:
+        fails.append(f"estimate_pose --layout {out['layout']}")
 
     # fuse_views: each view's points in the tag frame; near the tags the
     # second view's lie on the first's (median nearest-neighbour distance)
@@ -3863,8 +4360,8 @@ def apps_stream_phase(dev, gpu_line):
     scene's truth, B1-B4 held against their plain twins at the phase's
     inputs, the renderer at full width and the mesh over a repeated
     device. Returns (the phase's kernel records, the phase's B1-B4
-    wrapper launches, B1-B3's launches inside graphs in the traced
-    track_stream calls)."""
+    wrapper launches, B1-B4's launches inside graphs in the traced CLI
+    calls)."""
     import pathlib
     import tempfile
 
@@ -3887,7 +4384,8 @@ def apps_stream_phase(dev, gpu_line):
                                  f"device ({device['track_stream']})")
         if (launches["track_stream_robust"]["ccl_tiled"] < 1
                 and launches["fuse_views"]["ccl_tiled"] < 1
-                and device["track_stream_robust"]["ccl_tiled"] < 1):
+                and device["track_stream_robust"]["ccl_tiled"] < 1
+                and device["fuse_views"]["ccl_tiled"] < 1):
             raise AssertionError("B4 not launched by track_stream --robust "
                                  "nor fuse_views")
         if b2 is None or b3 is None or b4 is None:
@@ -4909,6 +5407,7 @@ def main(argv=None) -> int:
         with eager_steps(*ladder_steps()):
             records += robust_phase(dev, gpu_line)
         records += calibrated_tracking_phase(dev, gpu_line, records)
+        records += compiled_pose_phase(dev, gpu_line, rgbs, depths, K)
         records += registration_phase(dev, gpu_line)
         records += cad_chain_phase(dev, gpu_line, args.keep)
         counts = canopy_calib_eval_phase(dev, gpu_line)
@@ -4922,7 +5421,7 @@ def main(argv=None) -> int:
         bench_counts, bench_graph = bench_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact",
-            "K1": "eig3", "K2": "kabsch3"}
+            "K1": "eig3", "K2": "kabsch3", "K3": "eig9"}
     for rec in records:
         key = keys[rec["name"][:2]]
         rec["launches_canopy_calib_eval"] = counts[key]

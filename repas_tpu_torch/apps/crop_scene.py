@@ -20,10 +20,10 @@ from repas_tpu_torch.apps._common import (add_device_arg, add_intrinsics_args,
 from repas_tpu_torch.cloud import create_masked_pointcloud, tag_frame_aabb_crop
 from repas_tpu_torch.core.config import CropConfig, DetectorConfig
 from repas_tpu_torch.core.device import host_data_device
-from repas_tpu_torch.detect.detector import detect_tags
+from repas_tpu_torch.detect.detector import detect_tags_jit
 from repas_tpu_torch.io.meta import write_meta
 from repas_tpu_torch.io.ply import PointCloud, write_ply
-from repas_tpu_torch.pose.fusion import fuse_tag_poses
+from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
 
 
 def detect_and_fuse(rgb, depth, intr, tag_ids, tag_size, anchor_id, dev):
@@ -34,19 +34,19 @@ def detect_and_fuse(rgb, depth, intr, tag_ids, tag_size, anchor_id, dev):
     K = intr.K.astype(np.float32)
     rgb_t = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
     depth_t = torch.from_numpy(depth).to(dev)
-    det = detect_tags(rgb_t[None], DetectorConfig())
+    det = detect_tags_jit(rgb_t[None], DetectorConfig())
     valid = (det.valid[0].cpu().numpy()
              & np.isin(det.ids[0].cpu().numpy(), tag_ids))
     if not valid.any():
         raise SystemExit(f"no tags {tag_ids} found")
     # the reference always passes the coefficient vector (zeros for a lean
     # JSON), so its PnP runs the distortion path
-    fused = fuse_tag_poses(det.corners, det.ids, det.areas,
-                           torch.from_numpy(valid[None]).to(dev),
-                           depth_t[None], torch.from_numpy(K).to(dev),
-                           tag_size, anchor_id=anchor_id,
-                           dist=torch.from_numpy(
-                               intr.dist.astype(np.float32)).to(dev))
+    fused = fuse_tag_poses_jit(det.corners, det.ids, det.areas,
+                               torch.from_numpy(valid[None]).to(dev),
+                               depth_t[None], torch.from_numpy(K).to(dev),
+                               tag_size, anchor_id=anchor_id,
+                               dist=torch.from_numpy(
+                                   intr.dist.astype(np.float32)).to(dev))
     return det, fused, valid, K, rgb_t, depth_t
 
 

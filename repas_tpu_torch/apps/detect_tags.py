@@ -13,7 +13,7 @@ from repas_tpu_torch.apps._common import (add_device_arg, emit_json, frame0,
                                           load_rgb, log, to_device)
 from repas_tpu_torch.core.config import DetectorConfig
 from repas_tpu_torch.core.device import host_data_device
-from repas_tpu_torch.detect import detect_tags
+from repas_tpu_torch.detect import detect_tags_jit
 
 
 def main(argv=None):
@@ -29,7 +29,7 @@ def main(argv=None):
     results = []
     for path in args.images:
         img = load_rgb(path)
-        det = frame0(detect_tags(to_device(img, dev)[None], cfg))
+        det = frame0(detect_tags_jit(to_device(img, dev)[None], cfg))
         entry = {
             "image": str(path),
             "detections": [

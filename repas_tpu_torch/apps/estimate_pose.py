@@ -23,9 +23,9 @@ from repas_tpu_torch.apps._common import (add_device_arg, add_intrinsics_args,
                                           to_device)
 from repas_tpu_torch.core.config import DetectorConfig
 from repas_tpu_torch.core.device import host_data_device
-from repas_tpu_torch.detect import detect_tags
-from repas_tpu_torch.pose.bundle import solve_tag_bundle
-from repas_tpu_torch.pose.fusion import fuse_tag_poses
+from repas_tpu_torch.detect import detect_tags_jit
+from repas_tpu_torch.pose.bundle import solve_tag_bundle_jit
+from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
 
 
 def main(argv=None):
@@ -57,7 +57,7 @@ def main(argv=None):
             f"Depth size mismatch: COLOR {w}x{h} vs DEPTH "
             f"{depth.shape[1]}x{depth.shape[0]}")
 
-    det = detect_tags(to_device(rgb, dev)[None], DetectorConfig())
+    det = detect_tags_jit(to_device(rgb, dev)[None], DetectorConfig())
     hdet = frame0(det)
     ids = hdet.ids
     valid = hdet.valid
@@ -82,7 +82,7 @@ def main(argv=None):
                 bundle_valid[i] = True
         if not bundle_valid.any():
             raise SystemExit(f"no detected tags in layout {sorted(layout)}")
-        R, t, err = solve_tag_bundle(
+        R, t, err = solve_tag_bundle_jit(
             det.corners[0], det.centers[0], to_device(bundle_valid, dev),
             to_device(centers_w, dev), args.tag_size, K, dist)
         out = {
@@ -97,7 +97,7 @@ def main(argv=None):
         emit_json(out, args.json)
         return out
 
-    fused = frame0(fuse_tag_poses(
+    fused = frame0(fuse_tag_poses_jit(
         det.corners, det.ids, det.areas, to_device(valid, dev)[None],
         to_device(depth, dev)[None], K, args.tag_size,
         anchor_id=args.anchor_id, flip_z_ids=tuple(args.flip_z_ids or [-1]),

@@ -29,7 +29,7 @@ from repas_tpu_torch.detect.robust import detect_tags_robust
 from repas_tpu_torch.io.meta import write_meta
 from repas_tpu_torch.io.ply import PointCloud, read_geometry, write_ply
 from repas_tpu_torch.io.replay import ReplayBackend
-from repas_tpu_torch.pose.fusion import fuse_tag_poses
+from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
 
 
 def main(argv=None):
@@ -75,7 +75,7 @@ def main(argv=None):
         if not det.valid.cpu().numpy().any():
             log.warning("%s: no tags, skipping", view)
             continue
-        fused = fuse_tag_poses(
+        fused = fuse_tag_poses_jit(
             *(x[None] for x in (det.corners, det.ids, det.areas, det.valid)),
             depth_t[None], to_device(K, dev), args.tag_size,
             anchor_id=args.anchor_id,

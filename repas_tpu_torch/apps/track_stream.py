@@ -31,7 +31,7 @@ from repas_tpu_torch.core.device import host_data_device
 from repas_tpu_torch.detect.robust import detect_tags_robust
 from repas_tpu_torch.io.replay import ReplayBackend
 from repas_tpu_torch.pipeline import process_frame
-from repas_tpu_torch.pose.fusion import fuse_tag_poses
+from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
 from repas_tpu_torch.pose.track import TagTracker, TrackerConfig
 from repas_tpu_torch.utils.profiling import FpsCounter
 
@@ -113,7 +113,7 @@ def main(argv=None):
                 det = detect_tags_robust(rgb, cfg.detector)
                 # the reference passes zero coefficients: the PnP runs the
                 # distortion path
-                pose = frame0(fuse_tag_poses(
+                pose = frame0(fuse_tag_poses_jit(
                     *(x[None] for x in (det.corners, det.ids, det.areas,
                                         det.valid)),
                     to_device(depth_u16.astype(np.float32)

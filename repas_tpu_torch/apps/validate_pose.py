@@ -32,22 +32,22 @@ from repas_tpu_torch.apps._common import (add_device_arg, add_intrinsics_args,
 from repas_tpu_torch.core.config import DetectorConfig
 from repas_tpu_torch.core.device import host_data_device
 from repas_tpu_torch.core.transforms import rotation_angle_deg
-from repas_tpu_torch.detect import detect_tags
+from repas_tpu_torch.detect import detect_tags_jit
 from repas_tpu_torch.io.pose_txt import load_transform_txt
 from repas_tpu_torch.io.replay import ReplayBackend
 from repas_tpu_torch.kernels.pointcloud import median_depth_window
 from repas_tpu_torch.pose.depth_correct import z_scale_correction
-from repas_tpu_torch.pose.pnp import detector_pose, solve_pnp_best_order
+from repas_tpu_torch.pose.pnp import detector_pose, solve_pnp_best_order_jit
 
 
 def _best_tag_pose(rgb, intr, tag_size, dev, margin=10.0):
-    det = detect_tags(to_device(rgb, dev)[None], DetectorConfig())
+    det = detect_tags_jit(to_device(rgb, dev)[None], DetectorConfig())
     hdet = frame0(det)
     valid = hdet.valid & (hdet.decision_margin >= margin)
     if not valid.any():
         return None
     i = int(np.argmax(np.where(valid, hdet.decision_margin, -1)))
-    R, t, err, order = solve_pnp_best_order(
+    R, t, err, order = solve_pnp_best_order_jit(
         det.corners[0, i], to_device(intr.K.astype(np.float32), dev),
         tag_size, dist=to_device(np.asarray(intr.dist, np.float32), dev))
     return {"id": int(hdet.ids[i]), "R": R.cpu().numpy(),

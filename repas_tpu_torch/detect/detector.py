@@ -20,6 +20,12 @@ loop over frames or candidates and no host sync.
 
 With ``with_candidates`` it also returns every candidate quad's bbox and
 tag-likeness score, which the robust ladder escalates on.
+
+``detect_tags_jit`` is the compiled step (``core.jit``, ``config`` and
+``with_candidates`` static as in the reference) beside ``detect_tags``,
+which stays plain: the eager ``process_frames`` and the compiled steps
+that call it (the pipeline's, the tracker's, the ladder's) capture no
+graph of their own for it.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch.nn.functional as F
 
 from repas_tpu_torch.core.config import DetectorConfig
 from repas_tpu_torch.core.consts import const
-from repas_tpu_torch.core.jit import pin
+from repas_tpu_torch.core.jit import jit, pin
 from repas_tpu_torch.core.transforms import homography_from_unit_square
 from repas_tpu_torch.detect import tag_families
 from repas_tpu_torch.kernels.ccl import (connected_components,
@@ -579,6 +585,10 @@ def detect_tags(img: torch.Tensor,
                                  0.0)
         return det, cand_bbox, cand_score
     return det
+
+
+detect_tags_jit = jit(detect_tags, static_argnames=("config",
+                                                    "with_candidates"))
 
 
 def detect_tags_batch(imgs: torch.Tensor,

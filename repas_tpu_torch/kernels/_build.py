@@ -33,7 +33,8 @@ LIB_NAME = "librepas_kernels.so"
 # Wrapper calls that launched their kernel, by kernel. A wrapper adds one
 # where it launches, and nowhere else; callers may reset the counts.
 launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0,
-            "patch_blk": 0, "patch_exact": 0, "eig3": 0, "kabsch3": 0}
+            "patch_blk": 0, "patch_exact": 0, "eig3": 0, "kabsch3": 0,
+            "eig9": 0}
 
 # an entry point's return code when the CUDA driver lacks a call (csrc/*.cu)
 NO_DRIVER_CALL = -100000
@@ -64,6 +65,9 @@ _SIGNATURES = {
     "repas_pointcloud": [_P, _P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _P],
     # A, w, V, sweeps (or null), N, device, stream (csrc/eig3.cu)
     "repas_eig3": [_P, _P, _P, _P, _L, _I, _P],
+    # A, w, V, sweeps (or null), N, is_double, device, stream
+    # (csrc/eig9.cu)
+    "repas_eig9": [_P, _P, _P, _P, _L, _I, _I, _P],
     # H, R, sweeps (or null), N, device, stream (csrc/kabsch3.cu)
     "repas_kabsch3": [_P, _P, _P, _L, _I, _P],
     # pred, body stream, device, stream (csrc/graph_if.cu)

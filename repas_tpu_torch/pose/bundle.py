@@ -4,6 +4,7 @@ Port of ``repas_tpu/pose/bundle.py::solve_tag_bundle``: given a known
 layout of tag centers in one plane, stack 4 corners and the center of
 every detected tag and solve one SQPnP for the camera pose in the layout
 frame. Corners arrive in the detector's canonical TL,TR,BR,BL order.
+``solve_tag_bundle_jit`` is its compiled step (``core.jit``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from repas_tpu_torch.core.consts import const
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.pose.pnp import solve_pnp_sqpnp
 
 
@@ -36,3 +38,9 @@ def solve_tag_bundle(corners: torch.Tensor, centers_px: torch.Tensor,
     v = valid.to(torch.float32)
     w = torch.cat([torch.repeat_interleave(v, 4, dim=-1), v], dim=-1)
     return solve_pnp_sqpnp(obj, img, K, dist, weights=w)
+
+
+# ``tag_size_m``, which the reference traces, is static: it keys the
+# corner offsets' cached constant (ROADMAP C, static departures)
+solve_tag_bundle_jit = jit(solve_tag_bundle, static_argnames=("tag_size_m",),
+                           array_argnames=("K", "dist"))

@@ -12,6 +12,9 @@ Batched over frames:
   * weighted hemisphere-aligned quaternion average
   * anchor = configured id if present and valid, else argmax weight
   * depth-corrected translations P_depth
+
+``fuse_tag_poses_jit`` is the compiled step (``core.jit``) beside the
+plain function, which stays plain for the eager ``process_frames``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repas_tpu_torch.core.consts import const
+from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import average_rotations_quat, flip_z_180
 from repas_tpu_torch.pose.depth_correct import depth_corrected_translation
 from repas_tpu_torch.pose.pnp import (solve_pnp_best_order,
@@ -53,7 +57,7 @@ def fuse_tag_poses(corners: torch.Tensor, ids: torch.Tensor,
     (None: an undistorted camera). Invalid slots are masked out: their
     PnP may be NaN (degenerate corners), and no NaN reaches the weights,
     the average or the anchor."""
-    K = K.to(torch.float32)
+    K = torch.as_tensor(K, dtype=torch.float32, device=corners.device)
     corners = corners.to(torch.float32)
     if try_all_orders:
         Rs, ts, errs, orders = solve_pnp_best_order(corners, K, tag_size_m,
@@ -100,3 +104,13 @@ def fuse_tag_poses(corners: torch.Tensor, ids: torch.Tensor,
         R=Rs, t=ts, P_depth=Pd, P_depth_valid=Pd_valid,
         weights=weights, err_px=errs, order_idx=orders,
     )
+
+
+# ``win`` and ``try_all_orders`` are static as in the reference;
+# ``tag_size_m``, ``anchor_id`` and ``flip_z_ids``, which it traces, are
+# static here: the first keys the object points' cached constant, the
+# third the flip ids' (ROADMAP C, static departures)
+fuse_tag_poses_jit = jit(
+    fuse_tag_poses, static_argnames=("tag_size_m", "anchor_id", "flip_z_ids",
+                                     "win", "try_all_orders"),
+    array_argnames=("K", "dist"))

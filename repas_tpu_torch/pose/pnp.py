@@ -12,6 +12,14 @@ function broadcasts over leading dimensions: the frame pipeline solves
 (``torch.autograd.forward_ad`` with the six basis tangents batched), as
 the reference takes it from ``jax.linearize``.
 
+The reference's jitted solvers are compiled steps (``core.jit``) beside
+their plain functions, which stay plain so that an eager caller (the
+eager ``process_frames``) captures no graph of its own:
+``solve_pnp_ippe_square_jit``, ``refine_pnp_gn_jit``,
+``solve_pnp_sqpnp_jit`` and ``solve_pnp_best_order_jit``;
+``detector_pose`` is compiled as its public function. ``K`` and ``dist``
+may be numpy arrays there (copied to the step's device first).
+
 ``dist=None`` statically skips the Brown-Conrady polynomial in every
 projection (the frame pipeline's default); a coefficient vector (a
 tensor on the inputs' device: a host array would be copied, blocking)
@@ -36,6 +44,8 @@ from repas_tpu_torch.core.consts import const
 from repas_tpu_torch.core.jit import jit
 from repas_tpu_torch.core.transforms import (homography_from_unit_square,
                                              rodrigues, rodrigues_inv, skew)
+from repas_tpu_torch.kernels.eig9 import eig9
+from repas_tpu_torch.kernels.kabsch3 import kabsch3
 from repas_tpu_torch.kernels.project import project_points, undistort_points
 
 _EPS = 1e-12
@@ -169,7 +179,8 @@ def solve_pnp_ippe_square(img_corners: torch.Tensor, K: torch.Tensor,
     Both analytic solutions are LM-polished and the lower-reprojection
     one (with t_z > 0) wins. `dist=None` normalizes the corners in closed
     form; a coefficient vector undistorts them (10 fixed-point steps)."""
-    K = K.to(img_corners.dtype)
+    K = torch.as_tensor(K, dtype=img_corners.dtype,
+                        device=img_corners.device)
     dist = _dist(dist, K)
     obj = square_object_points(tag_size_m, img_corners.device).to(
         img_corners.dtype)
@@ -224,13 +235,14 @@ def detector_pose(img_corners: torch.Tensor, K: torch.Tensor,
     return R, t, err
 
 
-def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve the SPD systems A x = b (A (...,6,6), b (...,6)) by fully
-    unrolled pivot-free Cholesky, in the reference's operation order. A
-    zero matrix yields a huge but finite step that the LM accept test
-    rejects."""
-    L = [[None] * 6 for _ in range(6)]
-    for i in range(6):
+def _chol_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD systems A X = B (A (...,n,n), B (...,n,M)) by fully
+    unrolled pivot-free Cholesky in plain tensor operations, one path on
+    every device (``torch.linalg.solve`` on the card reads a status on
+    the host). A zero matrix yields a huge but finite solution."""
+    n = A.shape[-1]
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
         for k in range(i + 1):
             s = A[..., i, k]
             for m in range(k):
@@ -239,19 +251,27 @@ def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 L[i][k] = torch.sqrt(torch.clamp(s, min=1e-20))
             else:
                 L[i][k] = s / L[k][k]
+    L = [[None if v is None else v[..., None] for v in r] for r in L]
     y = []
-    for i in range(6):
-        s = b[..., i]
+    for i in range(n):
+        s = B[..., i, :]
         for m in range(i):
             s = s - L[i][m] * y[m]
         y.append(s / L[i][i])
-    x = [None] * 6
-    for i in reversed(range(6)):
+    x = [None] * n
+    for i in reversed(range(n)):
         s = y[i]
-        for m in range(i + 1, 6):
+        for m in range(i + 1, n):
             s = s - L[m][i] * x[m]
         x[i] = s / L[i][i]
-    return torch.stack(x, dim=-1)
+    return torch.stack(x, dim=-2)
+
+
+def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the SPD systems A x = b (A (...,6,6), b (...,6)) by
+    ``_chol_solve``, in the reference's operation order. A zero matrix
+    yields a huge but finite step that the LM accept test rejects."""
+    return _chol_solve(A, b[..., None])[..., 0]
 
 
 def _residuals(params, obj, img, K, dist, w):
@@ -290,7 +310,7 @@ def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     no early exit.
     """
     dt = img_pts.dtype
-    K = K.to(dt)
+    K = torch.as_tensor(K, dtype=dt, device=img_pts.device)
     dist = _dist(dist, K)
     n = obj_pts.shape[-2]
     w = (torch.ones(n, dtype=dt, device=img_pts.device) if weights is None
@@ -303,7 +323,8 @@ def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     eye6 = torch.eye(6, dtype=dt, device=p.device)
     r = res_fn(p)
     cost = torch.sum(r * r, dim=-1)
-    lam = torch.full(p.shape[:-1], damping, dtype=dt, device=p.device)
+    # damping may be a 0-d tensor (the compiled step's scalar)
+    lam = torch.zeros(p.shape[:-1], dtype=dt, device=p.device) + damping
     for _ in range(iters):
         Jm = _jacobian(res_fn, p)
         JT = Jm.transpose(-1, -2)
@@ -329,11 +350,25 @@ def refine_pnp_gn(obj_pts: torch.Tensor, img_pts: torch.Tensor,
 
 
 def _nearest_rotation(M: torch.Tensor) -> torch.Tensor:
-    """Project (...,3,3) matrices to SO(3) via SVD (det-corrected)."""
+    """Project (...,3,3) matrices to SO(3) via SVD (det-corrected); on the
+    card through kernel K2 (``_nearest_rotation_k2``)."""
+    if M.is_cuda:
+        return _nearest_rotation_k2(M)
     U, _, Vt = torch.linalg.svd(M)
     d = torch.sign(torch.linalg.det(U @ Vt))
     D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
     return (U * D[..., None, :]) @ Vt
+
+
+def _nearest_rotation_k2(M: torch.Tensor) -> torch.Tensor:
+    """M's nearest rotations through kernel K2's wrapper, in float32:
+    kabsch3(M^T) = V diag(1, 1, d) U^T for M^T = U S V^T, with
+    d = sign det(V U^T). K2 takes float32 only, so a float64 M is rounded
+    to float32 first and the rotation returned in float64: on the card a
+    float64 SQPnP call projects its seeds in float32 (the seeds are then
+    LM-polished in float64), where the CPU's SVD keeps float64."""
+    R = kabsch3(M.mT.reshape(-1, 3, 3).to(torch.float32).contiguous())
+    return R.reshape(M.shape).to(M.dtype)
 
 
 def _rotation_from_homography(Hm: torch.Tensor) -> torch.Tensor:
@@ -348,6 +383,29 @@ def _rotation_from_homography(Hm: torch.Tensor) -> torch.Tensor:
     h3n = torch.linalg.cross(h1, h2, dim=-1) / torch.clamp(
         s, min=1e-20)[..., None]
     return _nearest_rotation(torch.stack([sgn * h1, sgn * h2, h3n], dim=-1))
+
+
+def _eigh9(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of symmetric (...,9,9) matrices through
+    kernel K3's wrapper (K3 on the card, LAPACK on the CPU)."""
+    w, V = eig9(M.reshape(-1, 9, 9))
+    return w.reshape(M.shape[:-1]), V.reshape(M.shape)
+
+
+def _dlt_null_vector(Ah: torch.Tensor) -> torch.Tensor:
+    """The unit null vectors (...,9), of either sign, of the DLT rows Ah
+    (...,2N,9): on the card ``_gram_null_vector``, on the CPU the SVD's
+    last right singular vector."""
+    if Ah.is_cuda:
+        return _gram_null_vector(Ah)
+    return torch.linalg.svd(Ah, full_matrices=False)[2][..., -1, :]
+
+
+def _gram_null_vector(Ah: torch.Tensor) -> torch.Tensor:
+    """The eigenvector of the smallest eigenvalue of the Gram matrix
+    Ah^T Ah, formed in float64 (kernel K3's float64 entry on the card)."""
+    Ad = Ah.to(torch.float64)
+    return _eigh9(Ad.mT @ Ad)[1][..., :, 0].to(Ah.dtype)
 
 
 def solve_pnp_sqpnp(obj_pts: torch.Tensor, img_pts: torch.Tensor,
@@ -366,11 +424,18 @@ def solve_pnp_sqpnp(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     polynomial (zeros when `dist` is None); the lowest error with every
     weighted point in front of the camera wins.
 
-    On CUDA the eigen-, singular-value and linear solves check their
-    status on the host, so a call synchronizes."""
+    Nothing reads a status on the host, so the call captures as a CUDA
+    graph (``solve_pnp_sqpnp_jit``): the 3x3 solve for t is an unrolled
+    Cholesky on every device; on the card Omega's eigenvectors come from
+    kernel K3, the DLT's null vector is K3's eigenvector of the smallest
+    eigenvalue of the DLT's Gram matrix (formed in float64; its sign is
+    free, and ``_rotation_from_homography`` takes either), and the
+    projections to SO(3) are kernel K2 (in float32, whatever the input's
+    type). On the CPU they are LAPACK's eigh, the DLT's SVD and the SVD
+    projection."""
     dt = img_pts.dtype
     dev = img_pts.device
-    K = K.to(dt)
+    K = torch.as_tensor(K, dtype=dt, device=dev)
     dist = (const((0.0,) * 8, dt, dev) if dist is None
             else _dist(dist, K))
     obj = obj_pts.to(dt)
@@ -388,11 +453,11 @@ def solve_pnp_sqpnp(obj_pts: torch.Tensor, img_pts: torch.Tensor,
         *obj.shape[:-1], 3, 9)
     SW = W.sum(dim=-3)                                        # (...,3,3)
     SWA = torch.einsum("...nij,...njk->...ik", W, A)          # (...,3,9)
-    T = -torch.linalg.solve(SW + _EPS * eye3, SWA)            # t = T x
+    T = -_chol_solve(SW + _EPS * eye3, SWA)                   # t = T x
     M = A + T[..., None, :, :]
     Omega = torch.einsum("...nia,...nij,...njb->...ab", M, W, M)
 
-    _, evecs = torch.linalg.eigh(Omega)
+    _, evecs = _eigh9(Omega)
     small = evecs[..., :, :3].transpose(-1, -2)               # (...,3,9)
     seeds = torch.stack([small, -small], dim=-2).reshape(
         *small.shape[:-2], 6, 3, 3)
@@ -408,8 +473,8 @@ def solve_pnp_sqpnp(obj_pts: torch.Tensor, img_pts: torch.Tensor,
     r_v = torch.stack([zero, zero, zero, x_, y_, one,
                        -vv * x_, -vv * y_, -vv], dim=-1)
     Ah = torch.cat([r_u * sw, r_v * sw], dim=-2)              # (...,2N,9)
-    Vt = torch.linalg.svd(Ah, full_matrices=False)[2]
-    Hm = Vt[..., -1, :].reshape(*Vt.shape[:-2], 3, 3)
+    h = _dlt_null_vector(Ah)
+    Hm = h.reshape(*h.shape[:-1], 3, 3)
     cand.append(_rotation_from_homography(Hm)[..., None, :, :])
     cand_R = torch.cat(cand, dim=-3)                          # (...,7,3,3)
 
@@ -454,3 +519,19 @@ def solve_pnp_best_order(img_corners: torch.Tensor, K: torch.Tensor,
     t = torch.take_along_dim(ts, best[..., None, None], dim=-2)[..., 0, :]
     err = torch.take_along_dim(errs, best[..., None], dim=-1)[..., 0]
     return R, t, err, best
+
+
+# The reference's jitted solvers as compiled steps beside their plain
+# functions. ``tag_size_m``, which the reference traces, is static: it keys
+# the object points' cached constant (ROADMAP C, static departures).
+solve_pnp_ippe_square_jit = jit(
+    solve_pnp_ippe_square, static_argnames=("tag_size_m", "refine_iters"),
+    array_argnames=("K", "dist"))
+refine_pnp_gn_jit = jit(refine_pnp_gn, static_argnames=("iters",),
+                        scalar_argnames=("damping",),
+                        array_argnames=("K", "dist"))
+solve_pnp_sqpnp_jit = jit(solve_pnp_sqpnp, static_argnames=("refine_iters",),
+                          array_argnames=("K", "dist"))
+solve_pnp_best_order_jit = jit(
+    solve_pnp_best_order, static_argnames=("tag_size_m", "refine_iters"),
+    scalar_argnames=("z_penalty",), array_argnames=("K", "dist"))

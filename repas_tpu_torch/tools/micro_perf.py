@@ -46,8 +46,8 @@ from repas_tpu_torch.kernels.patch_extract import (
     extract_windows_exact_plain)
 from repas_tpu_torch.kernels.pointcloud import fused_pointcloud
 from repas_tpu_torch.pose.depth_correct import depth_corrected_translation
-from repas_tpu_torch.pose.fusion import fuse_tag_poses
-from repas_tpu_torch.pose.pnp import solve_pnp_ippe_square
+from repas_tpu_torch.pose.fusion import fuse_tag_poses_jit
+from repas_tpu_torch.pose.pnp import solve_pnp_ippe_square_jit
 from repas_tpu_torch.tools import card_line, ms_per_frame
 
 BATCH = 16
@@ -302,8 +302,10 @@ def main(argv=None) -> int:
             depth_m = depths.to(torch.float32) * 0.001
             dist = torch.zeros(8, dtype=torch.float32, device=dev)
 
-            timeit("pnp ippe x8", lambda c: torch.sum(solve_pnp_ippe_square(
-                c, K, 0.0303, dist=dist)[1]), corners)
+            # the JAX tool times these through jax.jit: the compiled steps
+            timeit("pnp ippe x8", lambda c: torch.sum(
+                solve_pnp_ippe_square_jit(c, K, 0.0303, dist=dist)[1]),
+                corners)
             ts = torch.tensor([0.1, 0.1, 1.0], device=dev).repeat(BATCH, D, 1)
             # the JAX tool sums frame 0's corrected translations only
             timeit("depth_correct x8", lambda t, dm: torch.sum(
@@ -314,8 +316,8 @@ def main(argv=None) -> int:
             timeit("quat average", lambda R, w: torch.sum(
                 average_rotations_quat(R, w, mask=w > 0)), Rs, ws)
             timeit("fuse_tag_poses full", lambda c, i, a, v, dm: torch.sum(
-                fuse_tag_poses(c, i, a, v, dm, K, 0.0303, flip_z_ids=(),
-                               dist=dist).anchor_P_depth),
+                fuse_tag_poses_jit(c, i, a, v, dm, K, 0.0303, flip_z_ids=(),
+                                   dist=dist).anchor_P_depth),
                 corners, ids, areas, valid, depth_m)
 
         if "pnpiters" in sections:
@@ -325,12 +327,12 @@ def main(argv=None) -> int:
                 100, 600, (BATCH, 8, 4, 2)).astype(np.float32)).to(dev)
             for it in (8, 4, 2, 0):
                 timeit(f"ippe dist=None iters={it}", lambda c, it=it:
-                       torch.sum(solve_pnp_ippe_square(
+                       torch.sum(solve_pnp_ippe_square_jit(
                            c, K, 0.0303, refine_iters=it)[1]), corners)
             zeros = torch.zeros(8, device=dev)
             timeit("ippe dist=zeros iters=8", lambda c: torch.sum(
-                solve_pnp_ippe_square(c, K, 0.0303, refine_iters=8,
-                                      dist=zeros)[1]), corners)
+                solve_pnp_ippe_square_jit(c, K, 0.0303, refine_iters=8,
+                                          dist=zeros)[1]), corners)
 
         if "pointcloud" in sections:
             print("--- pointcloud ---")

@@ -184,6 +184,7 @@ COMPILED = {
     "cloud/normals.py:67": ("cloud.normals", "_normals_step"),
     "cloud/reconstruct.py:31": ("cloud.reconstruct", "_poisson"),
     "cloud/registration.py:35": ("cloud.registration", "_icp"),
+    "detect/detector.py:471": ("detect.detector", "detect_tags_jit"),
     "detect/robust.py:72": ("detect.robust", "_enhance_stack"),
     "detect/robust.py:87": ("detect.robust", "_detect_batch"),
     "detect/robust.py:92": ("detect.robust", "_merge_jit"),
@@ -202,17 +203,25 @@ COMPILED = {
     "kernels/pointcloud.py:64": ("pipeline", "process_frames_jit"),   # B3
     "parallel/mesh.py:49": ("parallel.mesh", "sharded_frame_pipeline"),
     "pipeline.py:35": ("pipeline", "process_frames_jit"),
+    "pose/bundle.py:22": ("pose.bundle", "solve_tag_bundle_jit"),
+    "pose/fusion.py:44": ("pose.fusion", "fuse_tag_poses_jit"),
+    "pose/pnp.py:168": ("pose.pnp", "solve_pnp_ippe_square_jit"),
     "pose/pnp.py:212": ("pose.pnp", "detector_pose"),
+    "pose/pnp.py:288": ("pose.pnp", "refine_pnp_gn_jit"),
+    "pose/pnp.py:388": ("pose.pnp", "solve_pnp_sqpnp_jit"),
+    "pose/pnp.py:476": ("pose.pnp", "solve_pnp_best_order_jit"),
     "pose/track.py:72": ("pose.track", "TagTracker._track"),
     "viz/render.py:25": ("viz.render", "render_pointcloud"),
 }
-# sites still run eagerly when called on their own: SQPnP and the tag
-# bundle need status-free solves first (ROADMAP C11), and the others run
-# inside process_frames, whose eager form must not capture graphs of its
-# own (ROADMAP queue A)
-PENDING = {"pose/pnp.py:168", "pose/pnp.py:288", "pose/pnp.py:388",
-           "pose/pnp.py:476", "pose/fusion.py:44", "pose/bundle.py:22",
-           "detect/detector.py:471"}
+# sites still run eagerly when called on their own: none. The seven that
+# the eager process_frames (or another plain function) also calls are
+# compiled as steps named ``<name>_jit`` beside their plain functions,
+# which stay plain (see PLAIN_BESIDE)
+PENDING = set()
+# site -> the plain function beside its ``<name>_jit`` step: not
+# compiled, so an eager caller captures no graph of its own
+PLAIN_BESIDE = {site: JIT_SITES[site] for site, (_, path) in COMPILED.items()
+                if path == f"{JIT_SITES[site]}_jit"}
 
 
 def _compiled_steps(site):
@@ -248,3 +257,8 @@ def test_every_jit_site_is_compiled_or_pending(site):
     else:
         steps = _compiled_steps(site)
         assert steps and all(isinstance(s, Jitted) for s in steps), site
+        if site in PLAIN_BESIDE:
+            mod = importlib.import_module(
+                f"repas_tpu_torch.{COMPILED[site][0]}")
+            plain = getattr(mod, PLAIN_BESIDE[site])
+            assert not isinstance(plain, Jitted) and steps[0].fn is plain

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels (B1 CCL, B2 patch extraction, B3 point
 cloud, B4 segmented scans and tiled CCL, B5 and B6 the window copies of
-the measurement tool micro_perf, K1 the 3x3 eigh and K2 the Kabsch
-rotation) against their plain PyTorch versions, on the card; the window
-copies on each of their paths (vector, TMA, element by element) and at
-negative and edge starts.
+the measurement tool micro_perf, K1 the 3x3 eigh, K2 the Kabsch
+rotation and K3 the 9x9 eigh) against their plain PyTorch versions, on
+the card; the window copies on each of their paths (vector, TMA, element
+by element) and at negative and edge starts; SQPnP and the tag bundle on
+the card without a torch.linalg solve, eigh, SVD or det, compiled and
+replayed without a host read, against the CPU port.
 
 Marked ``cuda``: they skip where torch sees no CUDA device. On a machine
 with a card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
@@ -13,7 +15,14 @@ plain versions run in float64, eigenvalues within 1e-5 of the largest,
 the smallest eigenvector within 1e-4 rad where the two smallest
 eigenvalues are over 1e-6 of the trace apart (else |Av - lv| within
 1e-5 |A|), R within 1e-5 where sigma2 > 1e-6 sigma1, det R = 1 within
-1e-5 everywhere.
+1e-5 everywhere. K3 likewise against torch.linalg.eigh in float64:
+eigenvalues within 1e-5 (float32 input; 1e-12 for float64 input) of the
+largest |eigenvalue|, eigenvectors up to sign (1 - |v.v'| within 1e-5,
+1e-10 for float64) where the eigenvalue's gap to its neighbours is over
+1e-4 of the largest, |AV - VL| within 1e-5 |A|, V orthonormal within
+1e-5, at most 16 sweeps. SQPnP on 16 non-coplanar problems: R within
+0.01 degrees and t within 0.1 mm of the CPU port; the compiled step
+bit-equal to the eager call on the card.
 A mask density of -1 makes an all-foreground mask, 1 an all-background one.
 """
 import numpy as np
@@ -25,6 +34,7 @@ from repas_tpu_torch.kernels import _build, ccl, ccl_cuda  # noqa: E402
 from repas_tpu_torch.kernels import ccl_tiled  # noqa: E402
 from repas_tpu_torch.kernels import patch_extract, pointcloud  # noqa: E402
 from repas_tpu_torch.kernels.eig3 import eig3, eig3_plain  # noqa: E402
+from repas_tpu_torch.kernels.eig9 import eig9, eig9_plain  # noqa: E402
 from repas_tpu_torch.kernels.kabsch3 import (kabsch3,  # noqa: E402
                                              kabsch3_plain)
 
@@ -586,3 +596,154 @@ def test_eig3_and_kabsch3_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="sweeps"):
         eig3(torch.zeros(4, 3, 3, device=dev),
              sweeps=torch.zeros(3, dtype=torch.int32, device=dev))
+
+
+def _symmetric9(n, seed=0):
+    """(N,9,9) float64 symmetric matrices: Gram matrices of 12 random rows
+    (rank 9), of 8 rows (a null vector, as an exact SQPnP Omega has), and
+    Q diag Q^T with eigenvalues repeated in clusters; where n > 4, one
+    zero matrix and one identity."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randn(n, 12, 9, generator=g, dtype=torch.float64)
+    rows[1::3, 8:] = 0.0
+    A = rows.mT @ rows
+    q, _ = torch.linalg.qr(torch.randn(n, 9, 9, generator=g,
+                                       dtype=torch.float64))
+    lam = torch.tensor([1e-6, 1e-6, 1e-6, 0.5, 0.5, 2.0, 3.0, 3.0, 9.0],
+                       dtype=torch.float64)
+    A[2::3] = ((q * lam) @ q.mT)[2::3]
+    if n > 4:
+        A[3] = 0.0
+        A[4] = torch.eye(9, dtype=torch.float64)
+    return A
+
+
+@pytest.mark.parametrize("n,dtype", [(1, torch.float32), (16, torch.float32),
+                                     (4096, torch.float32),
+                                     (16, torch.float64)])
+def test_eig9_kernel_matches_plain(dev, n, dtype):
+    A = _symmetric9(n).to(dtype).to(dev)
+    before = _build.launches["eig9"]
+    sweeps = torch.zeros(n, dtype=torch.int32, device=dev)
+    w, V = eig9(A, sweeps=sweeps)
+    assert _build.launches["eig9"] == before + 1
+    assert w.dtype == V.dtype == dtype
+    wp, Vp = eig9_plain(A.double())
+    torch.cuda.synchronize()
+    f64 = dtype == torch.float64
+    top = wp.abs().amax(dim=1, keepdim=True) + 1e-300
+    assert ((w.double() - wp).abs() <= (1e-12 if f64 else 1e-5) * top).all()
+    assert (w[:, 1:] >= w[:, :-1]).all()
+    d = (wp[:, 1:] - wp[:, :-1]) / top
+    inf = torch.full((n, 1), float("inf"), dtype=torch.float64, device=dev)
+    gap = torch.minimum(torch.cat([inf, d], 1), torch.cat([d, inf], 1))
+    dots = (V.double() * Vp).sum(dim=1).abs()
+    assert (1 - dots[gap > 1e-4] <= (1e-10 if f64 else 1e-5)).all()
+    Ad, Vd = A.double(), V.double()
+    res = (Ad @ Vd - Vd * w.double()[:, None, :]).norm(dim=(1, 2))
+    assert (res <= 1e-5 * Ad.norm(dim=(1, 2)) + 1e-30).all()
+    eye = torch.eye(9, dtype=torch.float64, device=dev)
+    assert float((Vd.mT @ Vd - eye).abs().max()) <= 1e-5
+    assert int(sweeps.max()) <= 16
+
+
+def test_eig9_rejects_bad_inputs(dev):
+    with pytest.raises(ValueError, match="eig9"):
+        eig9(torch.zeros(4, 9, 9, dtype=torch.float16, device=dev))
+    with pytest.raises(ValueError, match="eig9"):
+        eig9(torch.zeros(4, 3, 3, device=dev))
+    with pytest.raises(ValueError, match="sweeps"):
+        eig9(torch.zeros(4, 9, 9, device=dev),
+             sweeps=torch.zeros(4, dtype=torch.int64, device=dev))
+
+
+def _sqpnp_batch(n=16, points=12, seed=0):
+    """n non-coplanar PnP problems: object points (n,P,3) within 0.1 m,
+    pixels (n,P,2) under 0.3 px of noise, and K."""
+    from repas_tpu_torch.kernels.project import project_points
+
+    rng = np.random.default_rng(seed)
+    K = torch.tensor([[748.9, 0, 639.87], [0, 748.35, 361.95], [0, 0, 1.0]])
+    obj = torch.from_numpy(rng.uniform(-0.1, 0.1, (n, points, 3)).astype(
+        np.float32))
+    rv = torch.from_numpy(rng.normal(0, 0.3, (n, 3)).astype(np.float32))
+    t = torch.from_numpy(np.stack([rng.uniform(-0.2, 0.2, n),
+                                   rng.uniform(-0.15, 0.15, n),
+                                   rng.uniform(0.4, 1.5, n)], 1).astype(
+        np.float32))
+    img = project_points(obj, rv, t, K) + torch.from_numpy(
+        rng.normal(0, 0.3, (n, points, 2)).astype(np.float32))
+    return obj, img, K
+
+
+def _no_linalg_solvers(monkeypatch):
+    def refuse(name):
+        def fn(*a, **k):
+            raise AssertionError(f"torch.linalg.{name} called on the card")
+        return fn
+
+    for name in ("solve", "svd", "eigh", "det"):
+        monkeypatch.setattr(torch.linalg, name, refuse(name))
+
+
+def test_sqpnp_on_card_without_linalg_and_compiled(dev, monkeypatch):
+    from repas_tpu_torch.pose import pnp
+
+    obj, img, K = _sqpnp_batch()
+    Rc, tc, ec = pnp.solve_pnp_sqpnp(obj, img, K)
+    args = (obj.to(dev), img.to(dev), K.to(dev))
+    _no_linalg_solvers(monkeypatch)
+    with torch.no_grad():
+        R, t, e = pnp.solve_pnp_sqpnp(*args)
+        pnp.solve_pnp_sqpnp_jit.clear()
+        pnp.solve_pnp_sqpnp_jit(*args)                # capture + replay
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            Rj, tj, ej = pnp.solve_pnp_sqpnp_jit(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(Rj, R) and torch.equal(tj, t) and torch.equal(ej, e)
+    # atan2(|sin|, cos): arccos of the trace turns float32 ulps into
+    # hundredths of a degree
+    Rr = R.cpu().double().mT @ Rc.double()
+    w = torch.stack([Rr[..., 2, 1] - Rr[..., 1, 2], Rr[..., 0, 2]
+                     - Rr[..., 2, 0], Rr[..., 1, 0] - Rr[..., 0, 1]], -1) / 2
+    ang = torch.rad2deg(torch.atan2(w.norm(dim=-1), (Rr.diagonal(
+        dim1=-2, dim2=-1).sum(-1) - 1) / 2))
+    assert float(ang.max()) <= 0.01
+    assert float((t.cpu() - tc).abs().max()) <= 1e-4
+    assert float(e.max()) < 1.0
+
+
+def test_tag_bundle_on_card_without_linalg(dev, monkeypatch):
+    from repas_tpu_torch.pose.bundle import solve_tag_bundle_jit
+
+    K = torch.tensor([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])
+    centers = torch.tensor([[0.0, 0, 0], [0.12, 0, 0], [0, 0.1, 0]])
+    h = 0.0303 / 2
+    offs = torch.tensor([[-h, -h, 0], [h, -h, 0], [h, h, 0], [-h, h, 0]])
+    cam = torch.cat([centers[:, None] + offs, centers[:, None]], 1) \
+        + torch.tensor([0.02, -0.01, 0.7])
+    px = cam[..., :2] / cam[..., 2:] * 600.0 + torch.tensor([320.0, 240.0])
+    valid = torch.ones(3, dtype=torch.bool)
+    Rc, tc, _ = solve_tag_bundle_jit(px[:, :4], px[:, 4], valid, centers,
+                                     0.0303, K)
+    _no_linalg_solvers(monkeypatch)
+    with torch.no_grad():
+        solve_tag_bundle_jit.clear()
+        args = (px[:, :4].to(dev), px[:, 4].to(dev), valid.to(dev),
+                centers.to(dev), 0.0303, K.to(dev))
+        want = solve_tag_bundle_jit.fn(*args)
+        solve_tag_bundle_jit(*args[:5], K.numpy())    # a numpy camera
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            Rg, tg, eg = solve_tag_bundle_jit(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(Rg, want[0]) and torch.equal(tg, want[1])
+    assert (Rg.cpu() - Rc).abs().max() <= 2e-4
+    assert (tg.cpu() - tc).abs().max() <= 1e-4
