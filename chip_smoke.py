@@ -89,7 +89,9 @@
    K1 and K2 held against their plain versions there (in float64, and
    in float32 where float32 determines the answer: the tolerances in
    check_k1 and check_k2), timed beside their bound and cuSOLVER's
-   calls; the warm call that captures every stage, with the launch
+   calls, and K1 likewise at the path's other shapes, one 65,536-matrix
+   chunk of the target's normals and a downsampled cloud's 8,192 (the
+   record's at_other_shapes); the warm call that captures every stage, with the launch
    counts set to 0 just before it (K1 and K2 launched); the compiled
    call: ICP fitness > 0.5, t error < 1 mm, R error < 0.05 degrees, no
    voxel dropped (n_down <= capacity), at most 8 synchronising calls and
@@ -666,20 +668,25 @@ K2_SRC = ("repas_tpu_torch/kernels/csrc/kabsch3.cu",
           "repas_tpu/cloud/fpfh.py:157")
 
 
+def bound_of(nbytes, ops, ops_per_s):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory
+    rate and operations over the rate of their type."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def record(name, src, err_ms, nbytes, ops, ops_per_s, library_note,
            library_ms=None):
     """A kernel's line of the {"kernels": [...]} result: its times, its
-    bound (the larger of bytes over the memory rate and operations over
-    the rate of their type) and its share of that bound."""
+    bound and its share of that bound."""
     max_err, ms, plain_ms = err_ms
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound_of(nbytes, ops, ops_per_s)
     return {"name": name, "route": "cuda", "source": src[0],
             "replaces": src[1], "launches": 0, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / ms, "library_ms": library_ms,
             "library_note": library_note}
 
@@ -1903,9 +1910,12 @@ def compiled_pose_phase(dev, gpu_line, rgbs, depths, K):
                     ("bundle DLT Gram", seen_b["eig9"][1]),
                     ("SQPnP batch Omega", seen_s["eig9"][0])):
         out, ms, plain_ms = check_k3(f"K3 eig9 ({what})", A)
+        bound_ms, bound_by = bound_of(
+            A.shape[0] * (81 + 9 + 81) * A.element_size(),
+            A.shape[0] * EIG9_OPS, F64_OPS_PER_S)
         small[what] = {"shape": list(A.shape), "dtype": out["dtype"],
-                       "ms": ms, "plain_ms": plain_ms,
-                       "sweeps": out["sweeps"]}
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "sweeps": out["sweeps"]}
     k2_pnp = {}
     for who, seen in (("bundle", seen_b), ("SQPnP batch", seen_s)):
         if len(seen["kabsch3"]) != 2:
@@ -2082,25 +2092,30 @@ def syncs_of(fn):
 
 def smallest_angle(a, b, p, cam):
     """Angles (rad) between unit vectors a and b (N,3), each first turned
-    to face `cam` from p, as _pca_normals turns a normal."""
+    to face `cam` from p, as _pca_normals turns a normal; up to sign where
+    p is None."""
+    if p is None:
+        return torch.atan2(torch.linalg.cross(a, b).norm(dim=1),
+                           (a * b).sum(1).abs())
     a = torch.where(((a * (cam - p)).sum(1) < 0)[:, None], -a, a)
     b = torch.where(((b * (cam - p)).sum(1) < 0)[:, None], -b, b)
     return torch.atan2(torch.linalg.cross(a, b).norm(dim=1),
                        (a * b).sum(1))
 
 
-def check_k1(A, p, cam):
-    """K1 against its plain version on the 1M target's covariances A: the
-    plain version (torch.linalg.eigh, 16,384 matrices a call, cuSOLVER's
-    limit) in float64 on the same values: eigenvalues within 1e-5 of the
-    largest, the smallest eigenvector within 1e-4 rad after both face the
-    camera where the two smallest eigenvalues are over 1e-6 of the trace
-    apart, elsewhere |Av - lv| within 1e-5 |A|; the same call in
-    float32 (today's): eigenvalues within 1e-5, the smallest eigenvector
-    within 1e-4 rad where the gap is over 1e-3 of the trace, and angle x
-    gap / trace within 1e-6 where it is over 1e-6 (a float32 solver errs
-    by a few ulps of |A|, and the vector moves by that over the gap).
-    Returns the record and the checks' numbers."""
+def check_k1(A, p, cam, name="K1 eig3"):
+    """K1 against its plain version on covariances A (the 1M target's
+    for the record): the plain version (torch.linalg.eigh, 16,384
+    matrices a call, cuSOLVER's limit) in float64 on the same values:
+    eigenvalues within 1e-5 of the largest, the smallest eigenvector
+    within 1e-4 rad after both face the camera from the points p (up to
+    sign where p is None) where the two smallest eigenvalues are over
+    1e-6 of the trace apart, elsewhere |Av - lv| within 1e-5 |A|; the
+    same call in float32 (today's): eigenvalues within 1e-5, the smallest
+    eigenvector within 1e-4 rad where the gap is over 1e-3 of the trace,
+    and angle x gap / trace within 1e-6 where it is over 1e-6 (a float32
+    solver errs by a few ulps of |A|, and the vector moves by that over
+    the gap). Returns the record and the checks' numbers."""
     from repas_tpu_torch.kernels.eig3 import eig3, eig3_plain
 
     def plain(M):
@@ -2120,8 +2135,8 @@ def check_k1(A, p, cam):
     tr = w64.sum(dim=1).abs() + 1e-30
     gap = (w64[:, 1] - w64[:, 0]) / tr
     apart = gap > 1e-6
-    ang64 = smallest_angle(V[:, :, 0].double(), V64[:, :, 0], p.double(),
-                           cam.double())
+    ang64 = smallest_angle(V[:, :, 0].double(), V64[:, :, 0],
+                           None if p is None else p.double(), cam.double())
     ang32 = smallest_angle(V[:, :, 0], V32[:, :, 0], p, cam).double()
     Ad, Vd = A.double(), V.double()
     res = (Ad @ Vd - Vd * w.double()[:, None, :]).norm(dim=1).amax(dim=1) \
@@ -2146,7 +2161,7 @@ def check_k1(A, p, cam):
             and out["angle_max_f32_gap_1e-3"] <= 1e-4
             and out["angle_x_gap_max_f32"] <= 1e-6
             and out["residual_rel_degenerate"] <= 1e-5):
-        raise AssertionError(f"K1 against its plain version: {out}")
+        raise AssertionError(f"{name} against its plain version: {out}")
     ms = cuda_ms(lambda: eig3(A), queued=True)
     plain_ms = cuda_ms(lambda: plain(A))
     rec = record("K1 eig3", K1_SRC, (out["eigval_abs_err_f32"], ms,
@@ -2156,8 +2171,9 @@ def check_k1(A, p, cam):
         "version", library_ms=plain_ms)
     rec["replaces_note"] = ("no Pallas kernel: jnp.linalg.eigh inside the "
                             "jitted estimate_normals_grid")
-    log({"kernel": "K1 eig3", "input_shape": [n, 3, 3], **out, "ms": ms,
-         "plain_ms": plain_ms})
+    log({"kernel": name, "input_shape": [n, 3, 3], **out, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": rec["bound_ms"]})
+    rec["sweeps"] = out["sweeps"]
     return rec
 
 
@@ -2292,8 +2308,25 @@ def registration_1m(dev, gpu_line):
         raise AssertionError(f"eager register_clouds: K1 saw {A.shape[0]} "
                              f"target matrices, K2 {len(seen['kabsch3'])} "
                              "calls")
-    records = [check_k1(A, tgt, torch.zeros(3, device=dev)),
+    cam = torch.zeros(3, device=dev)
+    records = [check_k1(A, tgt, cam),
                check_k2(seen["kabsch3"][0], seen["ransac"][0])]
+    # K1 at the path's other shapes: one 65,536-matrix chunk of the 1M
+    # target (its first points) and the downsampled clouds' capacity
+    # (points not recorded: vectors compared up to sign); launches: the
+    # eager call's at that shape
+    small = {}
+    for what, M, p in (("target chunk", seen["eig3"][2],
+                        tgt[:seen["eig3"][2].shape[0]]),
+                       ("capacity", seen["eig3"][0], None)):
+        r = check_k1(M, p, cam, name=f"K1 eig3 ({what})")
+        small[what] = {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "bound_share", "sweeps")}
+        small[what]["shape"] = list(M.shape)
+        small[what]["launches_eager_call"] = sum(
+            x.shape == M.shape for x in seen["eig3"])
+    records[0]["at_other_shapes"] = small
     del A, seen
 
     # the warm call captures every stage; the counts see its warm-up and

@@ -26,8 +26,9 @@ def eig3_plain(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def eig3(A: torch.Tensor, sweeps: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """eig3_plain's result; on the card from K1 (float64 cyclic Jacobi,
-    one thread per matrix). `sweeps`, an (N,) int32 tensor on the card,
-    receives each matrix's Jacobi sweep count."""
+    one thread per matrix, staged through shared memory in 16-byte
+    vectors). `sweeps`, an (N,) int32 tensor on the card, receives each
+    matrix's Jacobi sweep count."""
     if not A.is_cuda:
         return eig3_plain(A)
     if A.dtype != torch.float32 or A.dim() != 3 or A.shape[1:] != (3, 3):

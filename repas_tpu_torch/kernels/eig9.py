@@ -25,9 +25,10 @@ def eig9_plain(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def eig9(A: torch.Tensor, sweeps: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """eig9_plain's result; on the card from K3 (float64 cyclic Jacobi,
-    one warp per matrix). `sweeps`, an (N,) int32 tensor on the card,
-    receives each matrix's Jacobi sweep count."""
+    """eig9_plain's result; on the card from K3 (float64 Jacobi in
+    round-robin order, three matrices a warp, a lane a row). `sweeps`, an
+    (N,) int32 tensor on the card, receives each matrix's Jacobi sweep
+    count."""
     if not A.is_cuda:
         return eig9_plain(A)
     if A.dtype not in (torch.float32, torch.float64) or A.dim() != 3 \

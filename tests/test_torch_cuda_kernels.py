@@ -537,7 +537,9 @@ def _covariances(n, seed=0):
     return A
 
 
-@pytest.mark.parametrize("n", [1, 37, 70_000])       # over cuSOLVER's 32k
+# 128 matrices a block: one, a ragged block, one whole, one over; one
+# 65,536-matrix chunk of the normals; over cuSOLVER's 32k
+@pytest.mark.parametrize("n", [1, 37, 127, 128, 129, 65_536, 70_000])
 def test_eig3_kernel_matches_plain(dev, n):
     A = _covariances(n).to(dev)
     before = _build.launches["eig3"]
@@ -562,6 +564,17 @@ def test_eig3_kernel_matches_plain(dev, n):
     res = (Ad @ Vd - Vd * w.double()[:, None, :]).norm(dim=1).amax(dim=1)
     assert (res <= 1e-5 * Ad.norm(dim=(1, 2)) + 1e-30).all()
     assert int(sweeps.max()) <= 8
+
+
+def test_eig3_kernel_on_an_unaligned_view(dev):
+    """A view 36 bytes into its storage takes the kernel's scalar
+    staging: the same result as from an aligned copy."""
+    A = _covariances(301).to(dev)
+    w, V = eig3(A[1:])
+    wa, Va = eig3(A[1:].clone())
+    torch.cuda.synchronize()
+    assert A[1:].data_ptr() % 16 != 0
+    assert torch.equal(w, wa) and torch.equal(V, Va)
 
 
 def test_kabsch3_kernel_matches_plain(dev):
@@ -618,9 +631,10 @@ def _symmetric9(n, seed=0):
     return A
 
 
-@pytest.mark.parametrize("n,dtype", [(1, torch.float32), (16, torch.float32),
-                                     (4096, torch.float32),
-                                     (16, torch.float64)])
+# three matrices a warp, four warps a block: the packing's remainders
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 16, 4096, 4097])
 def test_eig9_kernel_matches_plain(dev, n, dtype):
     A = _symmetric9(n).to(dtype).to(dev)
     before = _build.launches["eig9"]
@@ -645,6 +659,16 @@ def test_eig9_kernel_matches_plain(dev, n, dtype):
     eye = torch.eye(9, dtype=torch.float64, device=dev)
     assert float((Vd.mT @ Vd - eye).abs().max()) <= 1e-5
     assert int(sweeps.max()) <= 16
+
+
+def test_eig9_result_does_not_depend_on_its_warp(dev):
+    """Each matrix alone gives what it gives among the warp's others
+    (they converge in different sweeps)."""
+    A = _symmetric9(7).float().to(dev)
+    w, V = eig9(A)
+    for i in range(7):
+        wi, Vi = eig9(A[i:i + 1])
+        assert torch.equal(wi[0], w[i]) and torch.equal(Vi[0], V[i])
 
 
 def test_eig9_rejects_bad_inputs(dev):
