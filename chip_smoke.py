@@ -76,7 +76,10 @@
    bundle's Omega and its DLT's float64 Gram), (16,9,9) and (4096,9,9),
    timed behind a spin kernel beside its bound and torch.linalg.eigh;
    K2 against its plain version (check_k2_pnp) on the seeds the bundle
-   and the batch project to SO(3); every graph is dropped at the end;
+   and the batch project to SO(3), (6,3,3), (1,3,3), (96,3,3) and
+   (16,3,3), timed there behind a spin kernel beside its bound and
+   torch.linalg.svd + det, with its sweep histogram (K2's record's
+   at_other_shapes); every graph is dropped at the end;
 8. the registration phase (repas_tpu_torch.cloud, compiled: each stage
    of register_clouds a captured graph, ICP's loop one WHILE graph node;
    kernels K1, the 3x3 eigh, and K2, the Kabsch rotation): (a)
@@ -276,7 +279,10 @@
    graft_entry and bench phases, as the wrappers count them; K1 and K2
    with their launches in the registration phase's capturing call and
    in its traced replay, K3 with its launches in the compiled_pose
-   phase's compiled bundle and SQPnP and in their traced replays; B1-B3 also with their launches inside replayed
+   phase's compiled bundle and SQPnP and in their traced replays; K1,
+   K2 and K3 with their numbers at the path's other shapes
+   (at_other_shapes; K2's at the pose seeds' four); B1-B3 also with
+   their launches inside replayed
    graphs in the apps_stream, compiled and bench phases, as the traces
    count them; each
    B2, B5 and B6 record with the window copy's path, "vector", "tma" or
@@ -1670,6 +1676,23 @@ def check_k3(name, A, timed=True):
     return out, ms, plain_ms
 
 
+def kabsch3_library(H):
+    """K2's library call: torch.linalg.svd, then torch.linalg.det of
+    V U^T (cuSOLVER), the SVD and the sign the plain version needs."""
+    U, _, Vh = torch.linalg.svd(H)
+    return torch.linalg.det(Vh.mT @ U.mT)
+
+
+def kabsch3_determined(Hd, s):
+    """Where the nearest rotation of Hd (N,3,3) float64, singular values
+    s, is determined (check_k2_pnp's rule)."""
+    top = s[:, 0] + 1e-300
+    gap = torch.where(torch.linalg.det(Hd) < 0,
+                      torch.minimum(s[:, 1] + s[:, 2], s[:, 1] - s[:, 2]),
+                      s[:, 1] + s[:, 2]) / top
+    return (gap > 1e-6) & (s[:, 2] / top > 1e-9)
+
+
 def check_k2_pnp(name, H):
     """K2 against its plain version on the (N,3,3) matrices SQPnP hands
     it (the transposes of the seeds it projects to SO(3)), the plain
@@ -1682,20 +1705,21 @@ def check_k2_pnp(name, H):
     seeds of a coplanar layout); on every matrix the Kabsch
     objective tr(R H) within 1e-6 (sigma1 + sigma2 + sigma3) of the
     plain version's (its maximum, which a free axis does not change),
-    det R = 1 and R^T R = I within 1e-5. Returns the numbers."""
+    det R = 1 and R^T R = I within 1e-5. Then the sweep histogram, and
+    the kernel's, the plain version's and the library call's ms (K2's
+    behind a spin kernel) beside K2's bound at this shape. Returns the
+    numbers."""
     from repas_tpu_torch.kernels.kabsch3 import kabsch3, kabsch3_plain
 
     n = H.shape[0]
     R = kabsch3(H).double()
+    sweeps = torch.zeros(n, dtype=torch.int32, device=H.device)
+    kabsch3(H, sweeps=sweeps)
     Hd = H.double()
     R64 = kabsch3_plain(Hd)
     s = torch.linalg.svdvals(Hd)
     torch.cuda.synchronize()
-    top = s[:, 0] + 1e-300
-    gap = torch.where(torch.linalg.det(Hd) < 0,
-                      torch.minimum(s[:, 1] + s[:, 2], s[:, 1] - s[:, 2]),
-                      s[:, 1] + s[:, 2]) / top
-    fixed = (gap > 1e-6) & (s[:, 2] / top > 1e-9)
+    fixed = kabsch3_determined(Hd, s)
     dR = (R - R64).abs().amax(dim=(1, 2))
     obj = ((R * Hd.mT).sum((1, 2)) - (R64 * Hd.mT).sum((1, 2))).abs() \
         / (s.sum(1) + 1e-300)
@@ -1712,6 +1736,14 @@ def check_k2_pnp(name, H):
             and out["det_err_max"] <= 1e-5
             and out["orthonormal_err"] <= 1e-5):
         raise AssertionError(f"{name} against its plain version: {out}")
+    out["sweeps"] = torch.bincount(sweeps).tolist()
+    out["ms"] = cuda_ms(lambda: kabsch3(H), queued=True)
+    out["plain_ms"] = cuda_ms(lambda: kabsch3_plain(H))
+    out["library_ms"] = cuda_ms(lambda: kabsch3_library(H))
+    out["bound_ms"], out["bound_by"] = bound_of(n * (36 + 36),
+                                                n * KABSCH3_OPS,
+                                                F64_OPS_PER_S)
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     log({"kernel": name, "input_shape": list(H.shape), **out})
     return out
 
@@ -1753,8 +1785,10 @@ def compiled_pose_phase(dev, gpu_line, rgbs, depths, K):
     and DLT Gram), (16,9,9) and (4096,9,9), timed beside its bound and
     torch.linalg.eigh; K2 against its plain version on the seeds the
     bundle and the batch project to SO(3), (6,3,3) and (1,3,3), (96,3,3)
-    and (16,3,3). Every graph is dropped at the end. Returns K3's
-    record."""
+    and (16,3,3), timed there beside its bound and torch.linalg.svd +
+    det, with its sweep histogram. Every graph is dropped at the end.
+    Returns K3's record, and K2's numbers at those shapes (main puts them
+    into K2's record as at_other_shapes)."""
     from repas_tpu_torch.core.config import PipelineConfig
     from repas_tpu_torch.core.jit import clear_caches
     from repas_tpu_torch.core.transforms import rodrigues_inv
@@ -1916,16 +1950,27 @@ def compiled_pose_phase(dev, gpu_line, rgbs, depths, K):
         small[what] = {"shape": list(A.shape), "dtype": out["dtype"],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "sweeps": out["sweeps"]}
-    k2_pnp = {}
+    k2_pnp, k2_shapes = {}, {}
     for who, seen in (("bundle", seen_b), ("SQPnP batch", seen_s)):
         if len(seen["kabsch3"]) != 2:
             raise AssertionError(f"{who}: K2 called {len(seen['kabsch3'])} "
                                  "times, not 2 (the Omega and homography "
                                  "seeds)")
+        replay = "bundle" if who == "bundle" else "sqpnp"
         for what, H in zip(("Omega seeds", "homography seeds"),
                            seen["kabsch3"]):
-            k2_pnp[f"{who} {what}"] = check_k2_pnp(
+            out = k2_pnp[f"{who} {what}"] = check_k2_pnp(
                 f"K2 kabsch3 ({who} {what})", H)
+            # launches: one a replay at this shape (two a replay in all,
+            # counted in its trace), one in the eager call
+            k2_shapes[f"{who} {what}"] = {
+                "shape": list(H.shape),
+                **{k: out[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by",
+                                       "bound_share", "sweeps")},
+                "launches_eager_call": sum(x.shape == H.shape
+                                           for x in seen["kabsch3"]),
+                "replay_launches": traces[replay]["kabsch3"]}
     A = seen_n["eig9"][0]
     out, ms, plain_ms = check_k3("K3 eig9 (bound)", A)
     n = A.shape[0]
@@ -1946,7 +1991,7 @@ def compiled_pose_phase(dev, gpu_line, rgbs, depths, K):
          "launches": launches, "vs_cpu": vs_cpu, "replay_traces": traces,
          "k2_vs_plain": k2_pnp,
          "phase_s": time.perf_counter() - t0, "gpu": gpu_line})
-    return [rec]
+    return [rec], k2_shapes
 
 
 def calibrated_tracking_phase(dev, gpu_line, records):
@@ -2226,12 +2271,7 @@ def check_k2(H, ransac_args):
         raise AssertionError(f"K2 against its plain version: {out}")
     ms = cuda_ms(lambda: kabsch3(H), queued=True)
     plain_ms = cuda_ms(lambda: kabsch3_plain(H))
-
-    def library():
-        U, _, Vh = torch.linalg.svd(H)
-        return torch.linalg.det(Vh.mT @ U.mT)
-
-    library_ms = cuda_ms(library)
+    library_ms = cuda_ms(lambda: kabsch3_library(H))
     rec = record("K2 kabsch3", K2_SRC, (out["dR_max_f32_r_1e-2"], ms,
                                         plain_ms), n * (36 + 36),
                  n * KABSCH3_OPS,
@@ -2240,8 +2280,11 @@ def check_k2(H, ransac_args):
                  "version needs", library_ms=library_ms)
     rec["replaces_note"] = ("no Pallas kernel: jnp.linalg.svd inside the "
                             "jitted ransac_registration")
+    rec["input_shape"] = [n, 3, 3]
+    rec["sweeps"] = out["sweeps"]
     log({"kernel": "K2 kabsch3", "input_shape": [n, 3, 3], **out,
-         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms})
+         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": rec["bound_ms"]})
     return rec
 
 
@@ -5440,8 +5483,14 @@ def main(argv=None) -> int:
         with eager_steps(*ladder_steps()):
             records += robust_phase(dev, gpu_line)
         records += calibrated_tracking_phase(dev, gpu_line, records)
-        records += compiled_pose_phase(dev, gpu_line, rgbs, depths, K)
-        records += registration_phase(dev, gpu_line)
+        k3_records, k2_shapes = compiled_pose_phase(dev, gpu_line, rgbs,
+                                                    depths, K)
+        records += k3_records
+        reg_records = registration_phase(dev, gpu_line)
+        for rec in reg_records:
+            if rec["name"] == "K2 kabsch3":
+                rec["at_other_shapes"] = k2_shapes
+        records += reg_records
         records += cad_chain_phase(dev, gpu_line, args.keep)
         counts = canopy_calib_eval_phase(dev, gpu_line)
         apps_records, apps_counts, apps_graph = apps_stream_phase(dev,

@@ -21,8 +21,9 @@
 // remainder); each lane takes its matrix from there (a stride of 9
 // words: no bank conflict), writes its eigenvalues and vectors back
 // there, and the warp stores its 384 and 1,152 bytes as 16-byte vectors
-// (likewise). Warps synchronise only among their own lanes, so a warp
-// whose matrices need another sweep holds up no other. Cyclic Jacobi
+// (likewise; csrc/warp_tile.cuh, shared with K2). Warps synchronise
+// only among their own lanes, so a warp whose matrices need another
+// sweep holds up no other. Cyclic Jacobi
 // rotations on the (0,1), (0,2), (1,2) pairs in registers, in float64
 // (the float32 input is exact in it, so the result is rounded once, at
 // the store), each rotation two reciprocal square roots and no division
@@ -34,10 +35,10 @@
 // `sweeps`, when given, receives each matrix's sweep count (the work
 // this data needed, for the bound).
 
-#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "jacobi.cuh"
+#include "warp_tile.cuh"
 
 namespace {
 
@@ -86,23 +87,6 @@ __device__ __forceinline__ void order(double (&a)[3][3], double (&v)[3][3]) {
   }
 }
 
-// `count` floats from src to dst by the warp's lanes, one of them shared
-// memory: 16-byte vectors where both are 16-byte aligned, then one by
-// one.
-__device__ __forceinline__ void copy(float* __restrict__ dst,
-                                     const float* __restrict__ src,
-                                     int count, int lane) {
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src))
-       & 15) == 0) {
-    for (int i = lane; i < count >> 2; i += 32)
-      reinterpret_cast<float4*>(dst)[i] =
-          reinterpret_cast<const float4*>(src)[i];
-    done = count & ~3;
-  }
-  for (int i = done + lane; i < count; i += 32) dst[i] = src[i];
-}
-
 __global__ void __launch_bounds__(32 * WARPS)
     eig3(const float* __restrict__ A, float* __restrict__ w,
          float* __restrict__ V, int* __restrict__ sweeps, long long n) {
@@ -114,7 +98,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   const int nb = (int)(n - tile * TILE < TILE ? n - tile * TILE : TILE);
   float* mat = reinterpret_cast<float*>(mat4[warp]);
   float* val = reinterpret_cast<float*>(val4[warp]);
-  copy(mat, A + 9 * TILE * tile, 9 * nb, lane);
+  warp_copy(mat, A + 9 * TILE * tile, 9 * nb, lane);
   __syncwarp();
 
   const bool live = lane < nb;
@@ -159,8 +143,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     if (sweeps != nullptr) sweeps[TILE * tile + lane] = sweep;
   }
   __syncwarp();
-  copy(V + 9 * TILE * tile, mat, 9 * nb, lane);
-  copy(w + 3 * TILE * tile, val, 3 * nb, lane);
+  warp_copy(V + 9 * TILE * tile, mat, 9 * nb, lane);
+  warp_copy(w + 3 * TILE * tile, val, 3 * nb, lane);
 }
 
 }  // namespace

@@ -1,4 +1,7 @@
-// The Jacobi rotation of kernels K1 and K3 (csrc/eig3.cu, csrc/eig9.cu).
+// The Jacobi rotation of kernels K1, K2 and K3 (csrc/eig3.cu,
+// csrc/kabsch3.cu, csrc/eig9.cu). K2 rotates columns p, q of H by the
+// rotation that diagonalises their Gram block (app, aqq the squared
+// norms, apq the dot product): a one-sided Jacobi step.
 #pragma once
 
 #include <cfloat>
@@ -16,10 +19,11 @@
 // twice and takes a square root and a reciprocal one): every sum adds
 // terms of one sign, so nothing cancels, and c^2 + s^2 = 1 to a few ulps
 // whatever the last bits of r, which only set the angle. Needs h^2 +
-// apq^2 and u^2 + apq^2 finite: K1's float32 entries always are, K3
-// scales its matrix first. Returns false, and sets nothing, where apq^2
-// is under DBL_MIN (|apq| < 1.5e-154, or NaN): the caller sets apq to 0
-// and rotates nothing.
+// apq^2 and u^2 + apq^2 finite: K1's float32 entries always are, and so
+// are K2's Gram entries (each under 3 FLT_MAX^2 < 1e78), K3 scales its
+// matrix first. Returns false, and sets nothing, where apq^2 is under
+// DBL_MIN (|apq| < 1.5e-154, or NaN): the caller sets apq to 0 (K2: the
+// pair counts as orthogonal) and rotates nothing.
 __device__ __forceinline__ bool jacobi_rotation(double app, double aqq,
                                                 double apq, double& c,
                                                 double& s, double& ta) {

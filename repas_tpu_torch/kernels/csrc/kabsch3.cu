@@ -10,43 +10,61 @@
 // that calls it cannot be captured as a CUDA graph. This kernel reads
 // nothing on the host.
 //
-// Bound on the H100: bytes (36 B read and 36 B written a matrix); a
-// sweep costs about 200 float64 operations. Design: one thread per
-// matrix, one-sided (Hestenes) Jacobi in float64 in registers: rotations
-// of column pairs of H, accumulated into V, until every pair is
-// orthogonal to 1e-15 of its norms (at most MAX_SWEEPS sweeps). The
-// columns of H V are then S U; they are sorted by norm, u1 and u2
-// normalised, and u3 = u1 x u2. For a point triple H has rank 2 at most,
-// so its third column is rounding noise and is never normalised; where
-// sigma2 is noise too (a collinear triple) u2 is any unit vector normal
-// to u1. R does not depend on the signs of u3 and v3: det(V U^T) flips
-// with either. `sweeps`, when given, receives each matrix's sweep count.
+// What bounds it on the H100: a matrix reads 36 B and writes 36 B, and
+// the function needs about 620 float64 operations, so bytes set the
+// least time (0.18 us at 8,192 matrices), far under a launch. The
+// callers hand it 1-8,192 matrices: under two warps an SM, so nothing
+// hides latency, and the time is one thread's chain of dependent float64
+// instructions plus the launch. Design: shorten that chain. One thread
+// per matrix (spreading a matrix over lanes would add shuffles to a chain
+// whose arithmetic is short), in tiles of 32 matrices a warp: each warp
+// copies its tile's 1,152 contiguous bytes into shared memory as 16-byte
+// vectors and stores its results the same way (csrc/warp_tile.cuh, as K1;
+// scalars for a ragged last tile or an unaligned pointer), each lane
+// reading its matrix at a stride of 9 words (no bank conflict).
+// One-sided (Hestenes) Jacobi in float64 in registers (the float32 input
+// is exact in it, so the result is rounded once, at the store): the
+// column pairs (0,1), (0,2), (1,2) of H in turn, each rotated by the
+// rotation that diagonalises its 2x2 Gram block [[a, g], [g, b]] (a, b
+// the squared column norms, g their dot product; csrc/jacobi.cuh, as K1
+// and K3: two reciprocal square roots, no division), accumulated into V.
+// A pair with g^2 <= 1e-30 a b (orthogonal to 1e-15 of its norms; no
+// square root in the test) is not rotated; the loop stops after a sweep
+// that rotates nothing, or at MAX_SWEEPS. The columns of H V are then
+// S U; they are sorted by squared norm x_j and u_j = h_j rsqrt(x_j), so
+// the singular values are never formed and nothing divides. For a point
+// triple H has rank 2 at most, so its third column is rounding noise and
+// is never normalised: u3 = u1 x u2. Where x2 <= 1e-26 x1 (sigma2 is
+// noise: a collinear triple) u2 is any unit vector normal to u1, taken
+// from the axis u1 leans on least; H = 0 gives R = I. R does not depend
+// on the signs of u3 and v3: det(V U^T) flips with either. `sweeps`,
+// when given, receives each matrix's count of sweeps that rotated.
 
 #include <cuda_runtime.h>
+
+#include "jacobi.cuh"
+#include "warp_tile.cuh"
 
 namespace {
 
 constexpr int MAX_SWEEPS = 10;
+constexpr int TILE = 32;            // matrices a warp's tile, one a lane
+constexpr int WARPS = 4;            // warps a block
 
 // Rotates columns p, q of h (and of v) to orthogonality; false when they
 // already were.
 template <int p, int q>
 __device__ __forceinline__ bool rotate(double (&h)[3][3], double (&v)[3][3]) {
-  double alpha = 0.0, beta = 0.0, gamma = 0.0;
+  double a = 0.0, b = 0.0, g = 0.0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    alpha += h[k][p] * h[k][p];
-    beta += h[k][q] * h[k][q];
-    gamma += h[k][p] * h[k][q];
+    a += h[k][p] * h[k][p];
+    b += h[k][q] * h[k][q];
+    g += h[k][p] * h[k][q];
   }
-  if (!(fabs(gamma) > 1e-15 * sqrt(alpha * beta))) return false;
-  const double zeta = (beta - alpha) / (2.0 * gamma);
-  const double t = fabs(zeta) > 1e150
-                       ? 0.5 / zeta
-                       : (zeta >= 0.0 ? 1.0 : -1.0) /
-                             (fabs(zeta) + sqrt(1.0 + zeta * zeta));
-  const double c = rsqrt(1.0 + t * t);
-  const double s = t * c;
+  double c, s, ta;
+  if (!(g * g > 1e-30 * a * b) || !jacobi_rotation(a, b, g, c, s, ta))
+    return false;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const double hp = h[k][p], hq = h[k][q];
@@ -60,12 +78,12 @@ __device__ __forceinline__ bool rotate(double (&h)[3][3], double (&v)[3][3]) {
 }
 
 template <int i, int j>
-__device__ __forceinline__ void order(double (&sig)[3], double (&h)[3][3],
+__device__ __forceinline__ void order(double (&x)[3], double (&h)[3][3],
                                       double (&v)[3][3]) {
-  if (sig[j] > sig[i]) {
-    const double t = sig[i];
-    sig[i] = sig[j];
-    sig[j] = t;
+  if (x[j] > x[i]) {
+    const double t = x[i];
+    x[i] = x[j];
+    x[j] = t;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       double u = h[k][i];
@@ -84,17 +102,26 @@ __device__ __forceinline__ double det3(const double (&m)[3][3]) {
          m[0][2] * (m[1][0] * m[2][1] - m[1][1] * m[2][0]);
 }
 
-__global__ void kabsch3(const float* __restrict__ H, float* __restrict__ R,
-                        int* __restrict__ sweeps, long long n) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= n) return;
-  const float* x = H + 9 * m;
+__global__ void __launch_bounds__(32 * WARPS)
+    kabsch3(const float* __restrict__ H, float* __restrict__ R,
+            int* __restrict__ sweeps, long long n) {
+  __shared__ float4 mat4[WARPS][9 * TILE / 4];   // H, then R
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long tile = (long long)blockIdx.x * WARPS + warp;
+  if (tile * TILE >= n) return;     // the whole warp: no block barrier
+  const int nb = (int)(n - tile * TILE < TILE ? n - tile * TILE : TILE);
+  float* mat = reinterpret_cast<float*>(mat4[warp]);
+  warp_copy(mat, H + 9 * TILE * tile, 9 * nb, lane);
+  __syncwarp();
+
+  const bool live = lane < nb;
+  const float* x = mat + 9 * lane;
   double h[3][3], v[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      h[i][j] = x[3 * i + j];
+      h[i][j] = live ? x[3 * i + j] : 0.0f;
       v[i][j] = i == j ? 1.0 : 0.0;
     }
   int sweep = 0;
@@ -104,28 +131,30 @@ __global__ void kabsch3(const float* __restrict__ H, float* __restrict__ R,
     rotated |= rotate<1, 2>(h, v);
     if (!rotated) break;
   }
-  double sig[3];
+  double sq[3];                     // squared column norms: sigma^2
 #pragma unroll
   for (int j = 0; j < 3; ++j)
-    sig[j] = sqrt(h[0][j] * h[0][j] + h[1][j] * h[1][j] + h[2][j] * h[2][j]);
-  order<0, 1>(sig, h, v);
-  order<1, 2>(sig, h, v);
-  order<0, 1>(sig, h, v);
+    sq[j] = h[0][j] * h[0][j] + h[1][j] * h[1][j] + h[2][j] * h[2][j];
+  order<0, 1>(sq, h, v);
+  order<1, 2>(sq, h, v);
+  order<0, 1>(sq, h, v);
 
   double u[3][3];  // columns u1, u2, u3
-  if (sig[0] > 0.0) {
+  if (sq[0] > 0.0) {
+    const double inv = rsqrt(sq[0]);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) u[k][0] = h[k][0] / sig[0];
+    for (int k = 0; k < 3; ++k) u[k][0] = h[k][0] * inv;
   } else {  // H = 0: U = V = I, R = I
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int j = 0; j < 3; ++j) u[i][j] = v[i][j] = i == j ? 1.0 : 0.0;
   }
-  if (sig[0] > 0.0 && sig[1] > 1e-13 * sig[0]) {
+  if (sq[0] > 0.0 && sq[1] > 1e-26 * sq[0]) {   // sigma2 > 1e-13 sigma1
+    const double inv = rsqrt(sq[1]);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) u[k][1] = h[k][1] / sig[1];
-  } else if (sig[0] > 0.0) {
+    for (int k = 0; k < 3; ++k) u[k][1] = h[k][1] * inv;
+  } else if (sq[0] > 0.0) {
     // any unit vector normal to u1: u1 x e, e the axis u1 leans on least
     const double ax = fabs(u[0][0]), ay = fabs(u[1][0]), az = fabs(u[2][0]);
     const int e = ax <= ay && ax <= az ? 0 : (ay <= az ? 1 : 2);
@@ -141,14 +170,20 @@ __global__ void kabsch3(const float* __restrict__ H, float* __restrict__ R,
   u[1][2] = u[2][0] * u[0][1] - u[0][0] * u[2][1];
   u[2][2] = u[0][0] * u[1][1] - u[1][0] * u[0][1];
   const double d = det3(v) * det3(u) < 0.0 ? -1.0 : 1.0;
-  float* out = R + 9 * m;
+
+  __syncwarp();                     // every lane's matrix read
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
-      out[3 * i + j] = (float)(v[i][0] * u[j][0] + v[i][1] * u[j][1] +
-                               d * v[i][2] * u[j][2]);
-  if (sweeps != nullptr) sweeps[m] = sweep;
+      for (int j = 0; j < 3; ++j)
+        mat[9 * lane + 3 * i + j] =
+            (float)(v[i][0] * u[j][0] + v[i][1] * u[j][1] +
+                    d * v[i][2] * u[j][2]);
+    if (sweeps != nullptr) sweeps[TILE * tile + lane] = sweep;
+  }
+  __syncwarp();
+  warp_copy(R + 9 * TILE * tile, mat, 9 * nb, lane);
 }
 
 }  // namespace
@@ -158,9 +193,8 @@ extern "C" int repas_kabsch3(const void* H, void* R, void* sweeps,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return 0;
-  const int threads = 128;
-  kabsch3<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-            (cudaStream_t)stream>>>((const float*)H, (float*)R, (int*)sweeps,
-                                    n);
+  const long long blocks = ((n + TILE - 1) / TILE + WARPS - 1) / WARPS;
+  kabsch3<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      (const float*)H, (float*)R, (int*)sweeps, n);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,8 @@ def kabsch3_plain(H: torch.Tensor) -> torch.Tensor:
 def kabsch3(H: torch.Tensor, sweeps: torch.Tensor | None = None
             ) -> torch.Tensor:
     """kabsch3_plain's result; on the card from K2 (float64 one-sided
-    Jacobi, one thread per matrix; H (N,3,3) float32). `sweeps`, an (N,)
+    Jacobi without division, one thread per matrix, warp tiles of 32
+    staged through shared memory; H (N,3,3) float32). `sweeps`, an (N,)
     int32 tensor on the card, receives each matrix's sweep count."""
     if not H.is_cuda:
         return kabsch3_plain(H)

@@ -577,28 +577,57 @@ def test_eig3_kernel_on_an_unaligned_view(dev):
     assert torch.equal(w, wa) and torch.equal(V, Va)
 
 
-def test_kabsch3_kernel_matches_plain(dev):
-    g = torch.Generator().manual_seed(1)
-    P = torch.randn(8192, 3, 3, generator=g) * 0.1
-    Q = torch.randn(8192, 3, 3, generator=g) * 0.1
+def _kabsch_triples(n, dev="cpu", seed=1):
+    """Cross-covariances H (N,3,3) float32, on dev, of Gaussian point
+    triples P, Q (a RANSAC draw's): every 5th P with a repeated pick,
+    every 5th (from 2) collinear, every 97th (from 3) one point three
+    times; where n > 4, H[4] = 0."""
+    g = torch.Generator().manual_seed(seed)
+    P = torch.randn(n, 3, 3, generator=g) * 0.1
+    Q = torch.randn(n, 3, 3, generator=g) * 0.1
     P[1::5, 2] = P[1::5, 1]                               # a repeated pick
     P[2::5, 2] = P[2::5, 0] + 0.4 * (P[2::5, 1] - P[2::5, 0])  # collinear
     P[3::97] = P[3::97, :1]                               # one point
     P, Q = P.to(dev), Q.to(dev)
     H = (P - P.mean(dim=1, keepdim=True)).mT @ (Q - Q.mean(dim=1,
                                                            keepdim=True))
-    H[4] = 0.0
+    if n > 4:
+        H[4] = 0.0
+    return H
+
+
+# 32 matrices a warp's tile, 4 tiles a block: one matrix; one SQPnP
+# problem's seeds (6) and a batch of 16's (16, 96); a tile less one,
+# whole, one over; one RANSAC draw (8,192), and one over it as a view 36
+# bytes into its storage (the scalar staging)
+@pytest.mark.parametrize("n", [1, 6, 16, 31, 32, 33, 96, 8192, 8193])
+def test_kabsch3_kernel_matches_plain(dev, n):
+    if n == 8193:
+        H = _kabsch_triples(n + 1, dev)[1:]
+        H[4] = 0.0
+        assert H.data_ptr() % 16 != 0
+    else:
+        H = _kabsch_triples(n, dev)
     before = _build.launches["kabsch3"]
     R = kabsch3(H)
     assert _build.launches["kabsch3"] == before + 1
+    sweeps = torch.zeros(n, dtype=torch.int32, device=dev)
+    Rs = kabsch3(H, sweeps=sweeps)
+    Ra = kabsch3(H.clone())
     Rp = kabsch3_plain(H.double())
     s = torch.linalg.svdvals(H.double())
     torch.cuda.synchronize()
+    assert torch.equal(Rs, R) and torch.equal(Ra, R)
+    assert 0 <= int(sweeps.min()) and int(sweeps.max()) <= 10
     ok = s[:, 1] > 1e-6 * s[:, 0]
-    assert 4000 < int(ok.sum()) < 8192
+    if n == 8192:
+        assert 4000 < int(ok.sum()) < 8192
+    else:
+        assert int(ok.sum()) >= n // 3
     assert float((R.double() - Rp).abs()[ok].max()) <= 1e-5
     assert float((torch.linalg.det(R.double()) - 1).abs().max()) <= 1e-5
-    assert torch.equal(R[4], torch.eye(3, device=dev))
+    if n > 4:
+        assert torch.equal(R[4], torch.eye(3, device=dev))
 
 
 def test_eig3_and_kabsch3_reject_bad_inputs(dev):

@@ -1,6 +1,7 @@
-"""The algorithms of kernels K3 (``kernels/csrc/eig9.cu``) and K1
-(``kernels/csrc/eig3.cu``), which run only on the card, as float64 torch
-models on the CPU, against LAPACK (``torch.linalg.eigh``).
+"""The algorithms of kernels K3 (``kernels/csrc/eig9.cu``), K1
+(``kernels/csrc/eig3.cu``) and K2 (``kernels/csrc/kabsch3.cu``), which
+run only on the card, as float64 torch models on the CPU, against LAPACK
+(``torch.linalg.eigh``; K2 against ``kabsch3_plain``, LAPACK's SVD).
 
 Each model follows its ``.cu`` step for step: the rotation of
 ``csrc/jacobi.cuh`` (two rsqrt, no division; skipped, a_pq set to 0,
@@ -37,6 +38,21 @@ float64's where the two smallest eigenvalues are over 1e-6 of the trace
 apart, within 1e-4 rad of float32's where over 1e-3, and angle x gap /
 trace within 1e-6 where over 1e-6; elsewhere |Av - lv| within 1e-5 |A|.
 
+K2's model runs the one-sided Jacobi on H's column pairs with the same
+rotation of each pair's Gram block, skipped where g^2 <= 1e-30 a b, until
+a sweep rotates nothing (at most 10), then sorts the columns by squared
+norm and normalises by rsqrt (``kabsch3_model``). Its inputs: one RANSAC
+draw's 8,192 triples (``_kabsch_triples``: repeated picks, collinear
+triples, H = 0), collinear triples, and the transposed seeds SQPnP
+projects to SO(3) in ``tests/test_torch_sqpnp.py``'s cases
+(non-coplanar, coplanar, the bundle; the sign-flipped seeds among
+them). Its gates: ``check_k2``'s (R within 1e-5 of float64's where
+sigma2 > 1e-6 sigma1, det R = 1 within 1e-5; within 1e-5 of float32's
+where (sigma2 + sigma3) / sigma1 > 1e-2, and that ratio times the
+difference within 1e-6) and ``check_k2_pnp``'s (R within 1e-5 where
+the rotation is determined, the Kabsch objective within 1e-6 and R
+orthonormal with det 1 everywhere).
+
 Budget: under 5 s on one worker.
 """
 import numpy as np
@@ -46,9 +62,11 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")            # tests/test_torch_sqpnp.py's cases
 
 from repas_tpu_torch.kernels.eig9 import eig9_plain  # noqa: E402
+from repas_tpu_torch.kernels.kabsch3 import kabsch3_plain  # noqa: E402
 from repas_tpu_torch.pose import bundle as TB  # noqa: E402
 from repas_tpu_torch.pose import pnp as TP  # noqa: E402
-from test_torch_cuda_kernels import _covariances, _symmetric9  # noqa: E402
+from test_torch_cuda_kernels import (_covariances,  # noqa: E402
+                                     _kabsch_triples, _symmetric9)
 from test_torch_sqpnp import (DIST, K, TAG, _bundle_case,  # noqa: E402
                               _sqpnp_case, _t)
 
@@ -169,6 +187,73 @@ def eig3_model(A):
     return d.float(), V.float(), sweeps
 
 
+def _det3(M):
+    """The kernels' det3: the cofactor expansion along the first row."""
+    return (M[:, 0, 0] * (M[:, 1, 1] * M[:, 2, 2] - M[:, 1, 2] * M[:, 2, 1])
+            - M[:, 0, 1] * (M[:, 1, 0] * M[:, 2, 2] - M[:, 1, 2] * M[:, 2, 0])
+            + M[:, 0, 2] * (M[:, 1, 0] * M[:, 2, 1] - M[:, 1, 1] * M[:, 2, 0]))
+
+
+def kabsch3_model(H):
+    """K2's algorithm in float64: (R, sweeps) of (N,3,3) float32 H, R
+    rounded to float32 as the kernel stores it. One-sided Jacobi on H's
+    column pairs (0,1), (0,2), (1,2), each rotated by csrc/jacobi.cuh's
+    rotation of its Gram block (a, b the squared norms, g the dot
+    product) unless g^2 <= 1e-30 a b (or g^2 under DBL_MIN); stop after a
+    sweep that rotates nothing, or 10 sweeps. Then the columns sorted by
+    squared norm x (the 3-comparator network), u1 = h1 rsqrt(x1), u2 =
+    h2 rsqrt(x2) where x2 > 1e-26 x1, else u1 x e over its norm (e the
+    axis u1 leans on least), u3 = u1 x u2; H = 0 gives U = V = I; R = V
+    diag(1, 1, d) U^T with d the sign of det V det U."""
+    h = H.to(F64).clone()
+    n = h.shape[0]
+    v = torch.eye(3, dtype=F64).repeat(n, 1, 1)
+    sweeps = torch.zeros(n, dtype=torch.int32)
+    active = torch.ones(n, dtype=torch.bool)
+    for _ in range(10):
+        rotated = torch.zeros(n, dtype=torch.bool)
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            a = (h[:, :, p] * h[:, :, p]).sum(1)
+            b = (h[:, :, q] * h[:, :, q]).sum(1)
+            g = (h[:, :, p] * h[:, :, q]).sum(1)
+            c, s, _ = rotation(a, b, g)
+            rot = active & (g * g > 1e-30 * a * b) & (g * g >= DBL_MIN)
+            c, s = c[:, None], s[:, None]
+            for m in (h, v):
+                mp, mq = m[:, :, p].clone(), m[:, :, q].clone()
+                m[:, :, p] = torch.where(rot[:, None], c * mp - s * mq, mp)
+                m[:, :, q] = torch.where(rot[:, None], s * mp + c * mq, mq)
+            rotated |= rot
+        active &= rotated
+        sweeps += active.to(torch.int32)
+        if not bool(active.any()):
+            break
+    x = (h * h).sum(1)
+    for i, j in ((0, 1), (1, 2), (0, 1)):         # the kernel's network
+        swap = x[:, j] > x[:, i]
+        x[:, [i, j]] = torch.where(swap[:, None], x[:, [j, i]], x[:, [i, j]])
+        for m in (h, v):
+            m[:, :, [i, j]] = torch.where(swap[:, None, None],
+                                          m[:, :, [j, i]], m[:, :, [i, j]])
+    live = x[:, 0] > 0
+    eye = torch.eye(3, dtype=F64)
+    u1 = torch.where(live[:, None], h[:, :, 0] * torch.rsqrt(x[:, :1]),
+                     eye[0])
+    lean = u1.abs()
+    e = torch.where((lean[:, 0] <= lean[:, 1]) & (lean[:, 0] <= lean[:, 2]),
+                    0, torch.where(lean[:, 1] <= lean[:, 2], 1, 2))
+    normal = torch.linalg.cross(u1, eye[e])
+    normal = normal * torch.rsqrt((normal * normal).sum(1, keepdim=True))
+    u2 = torch.where((x[:, 1] > 1e-26 * x[:, 0])[:, None],
+                     h[:, :, 1] * torch.rsqrt(x[:, 1:2]), normal)
+    u2 = torch.where(live[:, None], u2, eye[1])
+    U = torch.stack([u1, u2, torch.linalg.cross(u1, u2)], 2)
+    V = torch.where(live[:, None, None], v, eye)
+    d = torch.where(_det3(V) * _det3(U) < 0, -1.0, 1.0)
+    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], 1)
+    return ((V * D[:, None, :]) @ U.mT).float(), sweeps
+
+
 def _worst(x, sel):
     return float(x[sel].max()) if bool(sel.any()) else 0.0
 
@@ -231,6 +316,54 @@ def check_k1(A, w, V, sweeps):
     assert int(sweeps.max()) <= 8
 
 
+def check_k2(H, R, sweeps):
+    """chip_smoke.py's check_k2 gates on the model's result: against the
+    plain version in float64, R within 1e-5 where sigma2 > 1e-6 sigma1,
+    det R = 1 within 1e-5; against it in float32, R within 1e-5 where
+    r = (sigma2 + sigma3) / sigma1 > 1e-2 and |dR| r within 1e-6 where
+    sigma2 > 1e-6 sigma1; at most 10 sweeps."""
+    R64 = kabsch3_plain(H.double())
+    R32 = kabsch3_plain(H)
+    s = torch.linalg.svdvals(H.double())
+    ok = s[:, 1] > 1e-6 * s[:, 0]
+    r = (s[:, 1] + s[:, 2]) / (s[:, 0] + 1e-300)
+    e64 = (R.double() - R64).abs().amax(dim=(1, 2))
+    e32 = (R - R32).double().abs().amax(dim=(1, 2))
+    assert R.dtype == torch.float32
+    assert _worst(e64, ok) <= 1e-5
+    assert float((torch.linalg.det(R.double()) - 1).abs().max()) <= 1e-5
+    assert _worst(e32, r > 1e-2) <= 1e-5
+    assert _worst(e32 * r, ok) <= 1e-6
+    assert int(sweeps.max()) <= 10
+    return int(ok.sum())
+
+
+def check_k2_pnp(H, R):
+    """chip_smoke.py's check_k2_pnp gates on the model's result: against
+    the plain version in float64, R within 1e-5 where the nearest
+    rotation is determined ((sigma2 + sigma3) / sigma1 > 1e-6, and
+    (sigma2 - sigma3) / sigma1 > 1e-6 too where det H < 0; sigma3 /
+    sigma1 > 1e-9); everywhere the Kabsch objective tr(R H) within 1e-6
+    (sigma1 + sigma2 + sigma3) of the plain version's, det R = 1 and
+    R^T R = I within 1e-5. Returns the count determined."""
+    R, Hd = R.double(), H.double()
+    R64 = kabsch3_plain(Hd)
+    s = torch.linalg.svdvals(Hd)
+    top = s[:, 0] + 1e-300
+    gap = torch.where(torch.linalg.det(Hd) < 0,
+                      torch.minimum(s[:, 1] + s[:, 2], s[:, 1] - s[:, 2]),
+                      s[:, 1] + s[:, 2]) / top
+    fixed = (gap > 1e-6) & (s[:, 2] / top > 1e-9)
+    dR = (R - R64).abs().amax(dim=(1, 2))
+    obj = ((R * Hd.mT).sum((1, 2)) - (R64 * Hd.mT).sum((1, 2))).abs() \
+        / (s.sum(1) + 1e-300)
+    assert _worst(dR, fixed) <= 1e-5
+    assert float(obj.max()) <= 1e-6
+    assert float((torch.linalg.det(R) - 1).abs().max()) <= 1e-5
+    assert float((R.mT @ R - torch.eye(3, dtype=F64)).abs().max()) <= 1e-5
+    return int(fixed.sum())
+
+
 def test_round_robin_covers_each_pair_once_a_sweep():
     rounds = round_robin()
     assert len(rounds) == 9
@@ -273,34 +406,42 @@ def test_rotation_diagonalises_and_matches_sym_schur2():
 
 
 class _Recorded(Exception):
-    """Ends a solve once K3's two matrices are recorded."""
+    """Ends a solve once its homography seed is recorded."""
 
 
 @pytest.fixture(scope="module")
-def sqpnp_matrices():
-    """The (N,9,9) matrices SQPnP's CPU path hands K3's wrapper, with the
-    card's DLT null vector (the Gram's smallest eigenvector): float32
-    Omegas and float64 Grams of 3 non-coplanar problems, 3 coplanar ones
-    and the tag bundle's coplanar 3-tag layout. Each solve stops once its
-    Omega and Gram are recorded (the LM polish that follows needs
-    neither)."""
-    seen = []
+def sqpnp_inputs():
+    """What SQPnP's CPU path hands K3's and K2's wrappers, with the card's
+    DLT null vector (the Gram's smallest eigenvector), for 3 non-coplanar
+    problems, 3 coplanar ones and the tag bundle's coplanar 3-tag layout:
+    {"eig9": float32 Omegas and float64 Grams (N,9,9), "kabsch3": per
+    solve the (6,3,3) and (1,3,3) float32 transposes of the Omega seeds
+    (each second one sign-flipped) and of the homography seed, as
+    ``_nearest_rotation_k2`` hands them to K2}. Each solve stops once its
+    homography seed is recorded (the LM polish that follows needs
+    none)."""
+    seen = {"eig9": [], "kabsch3": []}
+    saved = TP.eig9, TP._dlt_null_vector, TP._nearest_rotation
 
-    def record(A):
-        seen.append(A.clone())
-        if A.dtype == F64:
-            raise _Recorded
+    def record9(A):
+        seen["eig9"].append(A.clone())
         return eig9_plain(A)
+
+    def record2(M):
+        seen["kabsch3"].append(M.mT.reshape(-1, 3, 3).to(torch.float32))
+        if len(seen["kabsch3"]) % 2 == 0:
+            raise _Recorded
+        return saved[2](M)
 
     def solve(fn, *args):
         try:
             fn(*args)
         except _Recorded:
             return
-        raise AssertionError(f"{fn.__name__} formed no DLT Gram")
+        raise AssertionError(f"{fn.__name__} formed no homography seed")
 
-    saved = TP.eig9, TP._dlt_null_vector
-    TP.eig9, TP._dlt_null_vector = record, TP._gram_null_vector
+    TP.eig9, TP._dlt_null_vector, TP._nearest_rotation = \
+        record9, TP._gram_null_vector, record2
     try:
         rng = np.random.default_rng(21)
         for kind in ("general", "general", "general", "coplanar",
@@ -311,8 +452,16 @@ def sqpnp_matrices():
         solve(TB.solve_tag_bundle, _t(corners), _t(cpx), _t(valid),
               _t(centers), TAG, _t(K))
     finally:
-        TP.eig9, TP._dlt_null_vector = saved
-    return {dt: torch.cat([A for A in seen if A.dtype == dt])
+        TP.eig9, TP._dlt_null_vector, TP._nearest_rotation = saved
+    return seen
+
+
+@pytest.fixture(scope="module")
+def sqpnp_matrices(sqpnp_inputs):
+    """The (N,9,9) matrices of ``sqpnp_inputs``, by type: the float32
+    Omegas and the float64 Grams."""
+    return {dt: torch.cat([A for A in sqpnp_inputs["eig9"]
+                           if A.dtype == dt])
             for dt in (torch.float32, F64)}
 
 
@@ -360,3 +509,60 @@ def test_eig3_model_on_covariances(n):
         assert torch.equal(V[i], torch.eye(3))
     assert torch.equal(V[3], torch.eye(3)) and int(sweeps[3]) == 0
     assert 2 <= int(sweeps[4:].min()) and int(sweeps.max()) <= 6
+
+
+def test_kabsch3_model_on_point_triples():
+    """One RANSAC draw's 8,192 triples: collinear ones, repeated picks,
+    one point three times and H = 0 among them."""
+    H = _kabsch_triples(8192)
+    R, sweeps = kabsch3_model(H)
+    assert 4000 < check_k2(H, R, sweeps) < 8192
+    assert torch.equal(R[4], torch.eye(3))                    # H = 0
+    assert int(sweeps[4]) == 0
+    s = torch.linalg.svdvals(H.double())
+    ok = s[:, 1] > 1e-6 * s[:, 0]
+    # rank 2: 2-5 sweeps; the rank-1 noise of a point taken three times
+    # may rotate to the cap
+    assert 2 <= int(sweeps[ok].min()) and int(sweeps[ok].max()) <= 5
+
+
+def test_kabsch3_model_on_collinear_triples():
+    """sigma2 is noise: u2 any unit normal to u1, the Kabsch objective
+    still the plain version's."""
+    g = torch.Generator().manual_seed(5)
+    P = torch.randn(64, 3, 3, generator=g, dtype=F64)
+    P[:, 2] = P[:, 0] + torch.rand(64, 1, generator=g, dtype=F64) * (
+        P[:, 1] - P[:, 0])
+    Q = torch.randn(64, 3, 3, generator=g, dtype=F64)
+    H = ((P - P.mean(1, keepdim=True)).mT
+         @ (Q - Q.mean(1, keepdim=True))).float()
+    R, sweeps = kabsch3_model(H)
+    s = torch.linalg.svdvals(H.double())
+    assert bool((s[:, 1] <= 1e-6 * s[:, 0]).all())
+    check_k2_pnp(H, R)
+    assert int(sweeps.max()) <= 10
+
+
+@pytest.mark.parametrize("case", ["general", "coplanar", "bundle"])
+def test_kabsch3_model_on_sqpnp_seeds(sqpnp_inputs, case):
+    """The seeds SQPnP projects to SO(3) (tests/test_torch_sqpnp.py's
+    cases): per solve six Omega seeds, each second one the negative of
+    the one before (-R/sqrt(3) where Omega's null vector is exact: sigma2
+    = sigma3 and det < 0, a free axis), then one homography seed."""
+    seen = sqpnp_inputs["kabsch3"]
+    assert len(seen) == 14
+    first = {"general": 0, "coplanar": 3, "bundle": 6}[case]
+    solves = range(first, 7 if case == "bundle" else first + 3)
+    H = torch.cat([seen[2 * i + k] for i in solves for k in (0, 1)])
+    assert H.dtype == torch.float32 and H.shape[1:] == (3, 3)
+    assert all(seen[2 * i].shape[0] == 6 and seen[2 * i + 1].shape[0] == 1
+               for i in solves)
+    assert all(torch.equal(seen[2 * i][1::2], -seen[2 * i][::2])
+               for i in solves)
+    R, sweeps = kabsch3_model(H)
+    fixed = check_k2_pnp(H, R)
+    # non-coplanar: every seed determined; coplanar (a rank-deficient
+    # Omega): at least each homography seed
+    assert fixed == len(H) if case == "general" else fixed >= len(solves)
+    assert int(sweeps.max()) <= 10
+
