@@ -13,6 +13,16 @@ condition before each iteration. ``register_clouds`` runs each stage as
 its own compiled step, as the reference does, and reads the host where
 it does: the AABB, the downsampled counts, RANSAC's T and fitness, and
 ICP's iteration count.
+
+Its stages are spans (``utils.profiling.span``), recorded while a
+``torch.profiler`` profile runs: ``reg.entry`` around the whole call
+(attrs ``n_src``, ``n_tgt``, ``voxel``); inside it ``reg.aabb``,
+``reg.global`` (per cloud ``reg.down``, ``reg.feat``; then ``reg.match``,
+``reg.ransac``), ``reg.normals`` (the full target's normals) and
+``reg.icp``. Each host read is a ``read.*`` span inside its stage
+(``read.aabb``, ``read.n_down``, ``read.ransac``, ``read.t_init``, the
+copy of RANSAC's T back to the device, and ``read.icp_iters``): its
+length is the time the host waited for the device.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from repas_tpu_torch.core.device import host_data_device
 from repas_tpu_torch.core.jit import jit, while_loop
 from repas_tpu_torch.core.precision import cusolver
 from repas_tpu_torch.core.transforms import make_T, rodrigues
+from repas_tpu_torch.utils.profiling import span
 
 
 class ICPResult(NamedTuple):
@@ -63,12 +74,19 @@ def icp_point_to_plane(src: torch.Tensor, src_mask: torch.Tensor,
     (relative, absolute), or after max_iters; the result's metrics are
     evaluated once more at the final T. `T_init` may lie on the host;
     `iterations` is read from the device once, after the step."""
-    if T_init is not None:
-        T_init = torch.as_tensor(T_init, dtype=torch.float32).to(src.device)
-    T, fit, rmse, it = _icp(src, src_mask, tgt, tgt_mask, tgt_normals,
-                            max_corr_dist, max_iters, rel_tol, T_init, dims,
-                            slots)
-    return ICPResult(T=T, fitness=fit, inlier_rmse=rmse, iterations=int(it))
+    with span("reg.icp"):
+        if T_init is not None:
+            # a pageable copy: the host waits for the work queued before it
+            with span("read.t_init"):
+                T_init = torch.as_tensor(T_init, dtype=torch.float32).to(
+                    src.device)
+        T, fit, rmse, it = _icp(src, src_mask, tgt, tgt_mask, tgt_normals,
+                                max_corr_dist, max_iters, rel_tol, T_init,
+                                dims, slots)
+        with span("read.icp_iters"):
+            iterations = int(it)
+    return ICPResult(T=T, fitness=fit, inlier_rmse=rmse,
+                     iterations=iterations)
 
 
 @functools.partial(jit, static_argnames=("max_iters", "dims", "slots"),
@@ -163,7 +181,9 @@ def _aabb_diag(src, src_mask, tgt, tgt_mask) -> float:
     hi = torch.maximum(
         torch.amax(torch.where(src_mask[:, None], src, -torch.inf), dim=0),
         torch.amax(torch.where(tgt_mask[:, None], tgt, -torch.inf), dim=0))
-    return float(torch.linalg.vector_norm(hi - lo))
+    diag = torch.linalg.vector_norm(hi - lo)
+    with span("read.aabb"):
+        return float(diag)
 
 
 def _cloud(pts, mask, device):
@@ -187,25 +207,36 @@ def global_register_fpfh(src, src_mask, tgt, tgt_mask, voxel: float,
 
     Returns (T (4,4) float64 numpy, fitness float, n_down int: if n_down
     exceeds capacity the extra voxels were dropped)."""
-    clouds = []
-    n_down = 0
-    for pts, mask in ((src, src_mask), (tgt, tgt_mask)):
-        pts, mask = _cloud(pts, mask, device)
-        pd, _, _, md = voxel_downsample(pts, mask, voxel)
-        pc, mc, nv = compact_masked(pd, md, capacity)
-        n_down = max(n_down, int(nv))
-        nrm, _ = estimate_normals_grid(pc, mc, k=24, radius=2.0 * voxel,
-                                       dims=(32, 32, 32), slots=32)
-        feat = fpfh_features(pc, nrm, mc, radius=5.0 * voxel, k=48,
-                             dims=(32, 32, 32), slots=32)
-        clouds.append((pc, mc, feat))
-    (sp, sm, sf), (tp, tm, tf) = clouds
-    corr, _ = match_features(sf, sm, tf, tm, chunk=1024)
-    T, fitness = ransac_registration(sp, sm, tp, tm, corr,
-                                     dist_thresh=2.5 * voxel,
-                                     edge_check=edge_check,
-                                     n_hypotheses=n_hypotheses, key=seed)
-    return T.cpu().numpy().astype(np.float64), float(fitness), n_down
+    with span("reg.global"):
+        clouds = []
+        n_down = 0
+        for pts, mask in ((src, src_mask), (tgt, tgt_mask)):
+            with span("reg.down"):
+                pts, mask = _cloud(pts, mask, device)
+                pd, _, _, md = voxel_downsample(pts, mask, voxel)
+                pc, mc, nv = compact_masked(pd, md, capacity)
+                with span("read.n_down"):
+                    n_down = max(n_down, int(nv))
+            with span("reg.feat"):
+                nrm, _ = estimate_normals_grid(pc, mc, k=24,
+                                               radius=2.0 * voxel,
+                                               dims=(32, 32, 32), slots=32)
+                feat = fpfh_features(pc, nrm, mc, radius=5.0 * voxel, k=48,
+                                     dims=(32, 32, 32), slots=32)
+            clouds.append((pc, mc, feat))
+        (sp, sm, sf), (tp, tm, tf) = clouds
+        with span("reg.match"):
+            corr, _ = match_features(sf, sm, tf, tm, chunk=1024)
+        with span("reg.ransac"):
+            T, fitness = ransac_registration(sp, sm, tp, tm, corr,
+                                             dist_thresh=2.5 * voxel,
+                                             edge_check=edge_check,
+                                             n_hypotheses=n_hypotheses,
+                                             key=seed)
+            with span("read.ransac"):
+                T = T.cpu().numpy().astype(np.float64)
+                fitness = float(fitness)
+    return T, fitness, n_down
 
 
 def register_clouds(src, src_mask, tgt, tgt_mask, voxel: float | None = None,
@@ -218,16 +249,23 @@ def register_clouds(src, src_mask, tgt, tgt_mask, voxel: float | None = None,
 
     Tensor inputs run where they lie; numpy inputs on `device` (CUDA
     unless named). Returns (ICPResult, ransac_fitness, voxel)."""
-    src, src_mask = _cloud(src, src_mask, device)
-    tgt, tgt_mask = _cloud(tgt, tgt_mask, device)
-    if voxel is None:
-        voxel = max(0.02 * _aabb_diag(src, src_mask, tgt, tgt_mask), 1e-3)
-    T0, fit_g, _ = global_register_fpfh(
-        src, src_mask, tgt, tgt_mask, voxel, capacity=capacity,
-        n_hypotheses=n_hypotheses, seed=seed)
-    nrm_t, _ = estimate_normals_grid(tgt, tgt_mask, k=16,
-                                     radius=2.0 * voxel)
-    res = icp_point_to_plane(src, src_mask, tgt, tgt_mask, nrm_t,
-                             max_corr_dist=1.5 * voxel,
-                             max_iters=icp_iters, T_init=T0, dims=icp_dims)
+    with span("reg.entry", n_src=len(src), n_tgt=len(tgt)) as entry:
+        src, src_mask = _cloud(src, src_mask, device)
+        tgt, tgt_mask = _cloud(tgt, tgt_mask, device)
+        if voxel is None:
+            with span("reg.aabb"):
+                voxel = max(0.02 * _aabb_diag(src, src_mask, tgt, tgt_mask),
+                            1e-3)
+        if entry is not None:
+            entry.attrs["voxel"] = voxel
+        T0, fit_g, _ = global_register_fpfh(
+            src, src_mask, tgt, tgt_mask, voxel, capacity=capacity,
+            n_hypotheses=n_hypotheses, seed=seed)
+        with span("reg.normals"):
+            nrm_t, _ = estimate_normals_grid(tgt, tgt_mask, k=16,
+                                             radius=2.0 * voxel)
+        res = icp_point_to_plane(src, src_mask, tgt, tgt_mask, nrm_t,
+                                 max_corr_dist=1.5 * voxel,
+                                 max_iters=icp_iters, T_init=T0,
+                                 dims=icp_dims)
     return res, fit_g, voxel

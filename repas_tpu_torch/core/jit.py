@@ -38,6 +38,12 @@ every launch of one call into a ``torch.cuda.CUDAGraph``:
 * a kernel wrapper counts its launch calls in ``kernels._build.launches``
   as it always does, so the warm-up and the capture count and a replay
   adds nothing: a replay's kernels show in a ``torch.profiler`` trace;
+* ``CAPTURES`` counts every capture (warm-up and recording) and its
+  seconds on the host clock, per function, always; while a
+  ``torch.profiler`` profile runs, a capture is the span ``jit.capture``
+  and a replay (input copies, ``graph.replay()``, output clones) the
+  span ``jit.replay`` (``utils.profiling.span``), each with the
+  function's module and qualname as its ``fn``;
 * a graph keeps alive every cached tensor it reads (``pin``: the
   constants of ``core/consts.py``, the detector's code tables), so a
   cache's eviction cannot free memory a replay reads. ``clear_caches``
@@ -76,16 +82,23 @@ import ctypes
 import functools
 import inspect
 import threading
+import time
 import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repas_tpu_torch.utils.profiling import span
+
 # eager calls before the capture; one fills every lazy cache of the port
 WARMUP = 1
 
 _JITTED = weakref.WeakSet()     # every compiled function, for clear_caches
+# module.qualname -> (captures, seconds) of every compiled function's
+# captures, warm-up included, since the process started (clear_caches
+# keeps them)
+CAPTURES = {}
 _pinning = threading.local()    # .pins: what the running capture reads
 _warming = threading.local()    # .on: a capture's eager warm-up runs
 _disabled = threading.local()   # .on: inside disable_jit()
@@ -185,6 +198,8 @@ class Jitted:
                  array_argnames=()):
         self.fn = fn
         self.name = getattr(fn, "__qualname__", repr(fn))
+        # CAPTURES' key and the spans' fn: qualnames repeat across modules
+        self.full_name = f"{getattr(fn, '__module__', None)}.{self.name}"
         self.signature = inspect.signature(fn)
         self.static_argnames = tuple(static_argnames)
         self.scalar_argnames = tuple(scalar_argnames)
@@ -297,6 +312,18 @@ class Jitted:
         return self.fn(*b.args, **b.kwargs)
 
     def _capture(self, bound, leaves, dev) -> _Graph:
+        """Warms fn up and records its graph, counted in CAPTURES (the
+        failed ones too) and spanned as ``jit.capture``."""
+        t0 = time.perf_counter()
+        try:
+            with span("jit.capture", fn=self.full_name):
+                return self._record(bound, leaves, dev)
+        finally:
+            n, sec = CAPTURES.get(self.full_name, (0, 0.0))
+            CAPTURES[self.full_name] = (n + 1,
+                                        sec + time.perf_counter() - t0)
+
+    def _record(self, bound, leaves, dev) -> _Graph:
         static_in = [t.detach().clone() for t in leaves]
         stream = self._streams.get(dev)
         if stream is None:
@@ -336,15 +363,16 @@ class Jitted:
     def _replay(self, entry: _Graph, leaves, dev):
         cur = torch.cuda.current_stream(dev)
         try:
-            if entry.stream not in (None, cur.cuda_stream):
-                # the static buffers are still read by the last replay
-                cur.wait_event(entry.done)
-            for buf, t in zip(entry.static_in, leaves):
-                buf.copy_(t)
-            entry.graph.replay()
-            fresh = [t.clone() for t in entry.static_out]
-            entry.done.record(cur)
-            entry.stream = cur.cuda_stream
+            with span("jit.replay", fn=self.full_name):
+                if entry.stream not in (None, cur.cuda_stream):
+                    # the static buffers are still read by the last replay
+                    cur.wait_event(entry.done)
+                for buf, t in zip(entry.static_in, leaves):
+                    buf.copy_(t)
+                entry.graph.replay()
+                fresh = [t.clone() for t in entry.static_out]
+                entry.done.record(cur)
+                entry.stream = cur.cuda_stream
         except RuntimeError as e:
             raise RuntimeError(f"jit({self.name}): CUDA graph replay "
                                f"failed: {e}") from e

@@ -4,8 +4,9 @@ points of __graft_entry__.py are exported by repas_tpu_torch.graft_entry,
 every function of bench.py but the state file's has its namesake in
 repas_tpu_torch.bench,
 every name a JAX subpackage exports is exported by the port's
-subpackage, no module of the port imports jax or the JAX package, and every CLI of the port defaults to
---device cuda and raises without a card.
+subpackage (but those the port drops on purpose, NOT_EXPORTED), no
+module of the port imports jax or the JAX package, and every CLI of the
+port defaults to --device cuda and raises without a card.
 
 The JAX sources are read as text (ast), so this file imports no jax.
 """
@@ -43,16 +44,26 @@ def test_every_jax_module_has_a_port(rel):
         assert (PORT_PKG / r).is_file(), f"repas_tpu/{rel} -> missing {r}"
 
 
+# names a JAX subpackage exports that the port drops on purpose:
+# utils.stage_timer, a host clock around a stage that waits for the
+# device, whose place the port's spans (utils.span) take
+NOT_EXPORTED = {"utils/__init__.py": {"stage_timer"}}
+
+
 @pytest.mark.parametrize("init", sorted(
     str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("__init__.py")
     if _all_names(p) is not None))
 def test_every_exported_name_is_exported_by_the_port(init):
     names = _all_names(JAX_PKG / init)
+    dropped = NOT_EXPORTED.get(init, set())
+    assert dropped <= set(names)
+    names = [n for n in names if n not in dropped]
     mod = ".".join(("repas_tpu_torch", *pathlib.Path(init).parent.parts))
     port = importlib.import_module(mod)
     missing = [n for n in names if not hasattr(port, n)]
     assert not missing, f"{mod} lacks {missing}"
     assert set(names) <= set(port.__all__)
+    assert not dropped & set(port.__all__)
 
 
 @pytest.mark.parametrize("name", sorted(

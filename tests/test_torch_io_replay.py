@@ -7,7 +7,6 @@ scales and intrinsics, the stream profiles, select_profile's three
 rungs, the dataset's fields and write_pose's bytes.
 """
 import json
-import logging
 
 import numpy as np
 import pytest
@@ -168,29 +167,24 @@ def test_pose_sequence_dataset_matches_reference(tmp_path, rng):
     assert dt[0].pose is None
 
 
-def test_profiling_hooks(tmp_path, caplog):
+def test_profiling_hooks(tmp_path):
     import torch
 
-    from repas_tpu_torch.utils import FpsCounter, stage_timer
-    from repas_tpu_torch.utils.profiling import device_trace
+    from repas_tpu_torch.utils import FpsCounter, span
+    from repas_tpu_torch.utils.profiling import clear_spans, device_trace
 
-    log = logging.getLogger("PERF")
-    log.addHandler(caplog.handler)
-    try:
-        with stage_timer("stage", sync=lambda: {"x": (torch.ones(3),)}):
-            pass
-        with stage_timer("plain"):
-            pass
-    finally:
-        log.removeHandler(caplog.handler)
-    assert [r.getMessage().split(":")[0] for r in caplog.records] == \
-        ["stage", "plain"]
     fps = FpsCounter(interval=0.0)
     assert fps.tick(5) > 0 and fps.fps > 0
     assert FpsCounter(interval=60.0).tick() is None
     with device_trace(None):
         pass
     with device_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("stage.outer", fn="step"):
+            with span("stage.inner"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    clear_spans()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the spans show in the trace under their names, beside the ops
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"stage.outer:step", "stage.inner", "aten::mm"} <= names
