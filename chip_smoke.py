@@ -82,7 +82,8 @@
    at_other_shapes); every graph is dropped at the end;
 8. the registration phase (repas_tpu_torch.cloud, compiled: each stage
    of register_clouds a captured graph, ICP's loop one WHILE graph node;
-   kernels K1, the 3x3 eigh, and K2, the Kabsch rotation): (a)
+   kernels K1, the 3x3 eigh, K2, the Kabsch rotation, and K4, the
+   grid-hash 1-NN query): (a)
    register_clouds on the JAX bench's 1M-point scene (bench.py's bumpy
    surface, seed 7, the source moved by rv (0.04, -0.06, 0.30) and t
    (0.06, -0.04, 0.05)) with tensors on the card, at the defaults
@@ -99,15 +100,21 @@
    call: ICP fitness > 0.5, t error < 1 mm, R error < 0.05 degrees, no
    voxel dropped (n_down <= capacity), at most 8 synchronising calls and
    none inside a replay, no new graph, T within 1e-5 m and 1e-3 degrees
-   of the eager call's; a traced compiled call (K1 and K2 on the device,
-   no cuSOLVER eigh or SVD kernel, its kernels and device ms); compiled
-   and eager seconds in turns (3 each); the stages one by one with a
-   synchronise between them (the split); each graph's reserved bytes;
+   of the eager call's; a traced compiled call (K1, K2 and K4 on the
+   device, no cuSOLVER eigh or SVD kernel, its kernels and device ms);
+   compiled and eager seconds in turns (3 each); the stages one by one
+   with a synchronise between them (the split); each graph's reserved
+   bytes;
    ICP alone from one T_init, compiled against eager (the same
    iterations, T within 1e-6 m; the capture's seconds and the graph's
    nodes, the WHILE body's), and with masked source points (C9's NaN
    RMSE) run to max_iters; one ICP correspondence pass's device and
-   host ms; (b) on a 20k-point pair of the same surface, ICP from one
+   host ms; K4 at the register cell's shapes (921,600 queries, an
+   independent sampling of the surface, on a 921,600-point target; the
+   grid at 1.5 voxel), one record a level: index and distance bit-equal
+   to the plain version, kernel and plain ms, the bound by bytes, K4's ms
+   on the table as built; a compiled ICP there timed at 1-4 trips (its
+   ms per trip); (b) on a 20k-point pair of the same surface, ICP from one
    T_init, RANSAC on one set of picks and the two-level grid query, each
    on the card against the CPU; (c) the capture side at 720p:
    create_masked_pointcloud on the bench frame (5 mm voxels, default
@@ -274,10 +281,10 @@
    roundings), robust_tags_found 7, registration_1m_status "ok", device
    equal to the card's line; the host's CPU count and the phase's
    seconds;
-16. prints one JSON line of kernel results (B1-B6, K1-K3, with each
+16. prints one JSON line of kernel results (B1-B6, K1-K4, with each
    kernel's launches in the canopy_calib_eval, apps_stream, tools,
-   graft_entry and bench phases, as the wrappers count them; K1 and K2
-   with their launches in the registration phase's capturing call and
+   graft_entry and bench phases, as the wrappers count them; K1, K2 and
+   K4 with their launches in the registration phase's capturing call and
    in its traced replay, K3 with its launches in the compiled_pose
    phase's compiled bundle and SQPnP and in their traced replays; K1,
    K2 and K3 with their numbers at the path's other shapes
@@ -383,6 +390,8 @@ REG_SMALL_ICP_ITERS = 30       # bounds the CPU side's time
 REG_SYNC_LIMIT = 8             # synchronising calls of a compiled call
 REG_TURNS = 3                  # compiled and eager calls, in turns
 ICP_BOUND_ITERS = 8            # max_iters of the ICP run that reaches it
+K4_N = 921_600                 # the register cell's clouds: a 720p frame's
+ICP_TRIPS = (1, 2, 3, 4)       # ICP replays timed at these trip counts
 EIGH_BATCH = 16384             # cuSOLVER's eigh refuses 32,768 3x3 (C11)
 # operations a matrix of what K1-K3's functions need, whatever the
 # algorithm and however many sweeps the kernel's Jacobi takes (Golub and
@@ -672,6 +681,10 @@ K1_SRC = ("repas_tpu_torch/kernels/csrc/eig3.cu",
           "repas_tpu/cloud/normals.py:53")
 K2_SRC = ("repas_tpu_torch/kernels/csrc/kabsch3.cu",
           "repas_tpu/cloud/fpfh.py:157")
+# K4 replaces no Pallas kernel either: the JAX package's grid_hash_query is
+# jax.jit code
+K4_SRC = ("repas_tpu_torch/kernels/csrc/grid_query.cu",
+          "repas_tpu/cloud/knn.py:96")
 
 
 def bound_of(nbytes, ops, ops_per_s):
@@ -2295,11 +2308,12 @@ def registration_1m(dev, gpu_line):
     every stage, with the launch counts set to 0 just before it (K1 and
     K2 launched); the compiled call: gates, synchronising calls (at most
     REG_SYNC_LIMIT, none inside a replay), peak memory, T against the
-    eager call's; a traced compiled call (K1 and K2 on the device, no
+    eager call's; a traced compiled call (K1, K2 and K4 on the device, no
     cuSOLVER eigh or SVD); compiled and eager seconds in turns; the stage
     split; each graph's reserved bytes; ICP alone compiled against eager
     (capture seconds, graph nodes, also run to max_iters); one ICP
-    correspondence pass's device and host ms. Returns K1's and K2's
+    correspondence pass's device and host ms; K4 and ICP's trips at the
+    register cell's shapes (check_k4). Returns K1's, K2's and K4's
     records."""
     from repas_tpu_torch.cloud import fpfh, knn, normals
     from repas_tpu_torch.cloud import registration as reg
@@ -2452,13 +2466,14 @@ def registration_1m(dev, gpu_line):
     # or SVD
     _, wrappers, _, names = traced(call)
     device = {"eig3": sum("eig3" in n for n in names),
-              "kabsch3": sum("kabsch3" in n for n in names)}
+              "kabsch3": sum("kabsch3" in n for n in names),
+              "grid_query": sum("grid_query" in n for n in names)}
     solver = sorted({n[:60] for n in names
                      if re.search(r"syev|gesvd|heev", n, re.I)})
     prof = device_profile(call, top=8)
     if any(wrappers.values()) or not all(device.values()) or solver:
         raise AssertionError(f"traced compiled registration: wrappers "
-                             f"{wrappers}, K1/K2 on the device {device}, "
+                             f"{wrappers}, K1/K2/K4 on the device {device}, "
                              f"solver kernels {solver}")
     records[0]["graph_launches_registration"] = device["eig3"]
     records[1]["graph_launches_registration"] = device["kabsch3"]
@@ -2548,6 +2563,101 @@ def registration_1m(dev, gpu_line):
          "graph_reserved_bytes": pools, "icp": icp,
          "icp_query_host_ms": query_host_ms,
          "icp_query_device_ms": query_dev_ms, "gpu": gpu_line})
+    k4 = check_k4(dev, gpu_line)
+    for rec in k4:
+        rec["launches"] = counts["grid_query"]
+        rec["graph_launches_registration"] = device["grid_query"]
+    return records + k4
+
+
+def check_k4(dev, gpu_line):
+    """K4 at the register cell's ICP shapes (K4_N queries, an independent
+    sampling of the surface, on a K4_N-point target; the grid at 1.5
+    voxel, the voxel 2 % of the AABB diagonal), one record a level: index
+    and distance bit-equal to the plain version, CUDA-event ms of both,
+    the bound by bytes (queries, mask, target and table read once, index
+    and distance written once; the f32 operations' bound logged beside
+    it), and K4's ms on the table as built (slots, cells) too. Then one
+    compiled ICP (`_icp`, rel_tol 0 so it runs max_iters trips) timed by
+    CUDA events at ICP_TRIPS trips: its grid and final query, and a trip.
+    Returns the two records."""
+    from repas_tpu_torch.cloud import knn, normals
+    from repas_tpu_torch.cloud import registration as reg
+    from repas_tpu_torch.kernels.grid_query import grid_query
+
+    _, tgt_np, _, _ = bumpy_scene(K4_N)
+    _, q_np, _, _ = bumpy_scene(K4_N, seed=REG_SEED + 1)
+    tgt = torch.from_numpy(tgt_np).to(dev)
+    q = torch.from_numpy(q_np).to(dev)
+    mask = torch.ones(K4_N, dtype=torch.bool, device=dev)
+    both = torch.cat([tgt, q])
+    voxel = max(0.02 * float(torch.linalg.vector_norm(both.amax(0)
+                                                      - both.amin(0))),
+                1e-3)
+    gh2 = knn.grid2_build(tgt, mask, 1.5 * voxel)
+    records = []
+    for level, gh, dims in (("coarse", gh2.coarse, (64, 64, 64)),
+                            ("fine", gh2.fine, (96, 96, 96))):
+        def kern(co=gh.cell_of, gh=gh, dims=dims):
+            return grid_query(co, gh.origin, gh.cell, tgt, q, mask, dims)
+
+        def plain(gh=gh, dims=dims):
+            return knn.grid_hash_query_plain(gh, tgt, q, mask, dims)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        equal = (torch.equal(got[0], want[0])
+                 and torch.equal(got[1].view(torch.int32),
+                                 want[1].view(torch.int32)))
+        if not equal:
+            raise AssertionError(f"K4 grid_query ({level}) differs from its "
+                                 "plain version")
+        slots, cells = gh.cell_of.shape
+        nbytes = 12 * K4_N + K4_N + 12 * K4_N + 4 * slots * cells + 8 * K4_N
+        # a candidate: 3 subtractions, 3 products, 2 sums
+        f32_ops = 8 * 27 * slots * K4_N
+        ms = cuda_ms(kern, queued=True)
+        as_built = gh.cell_of.contiguous()
+        ms_as_built = cuda_ms(lambda: kern(as_built), queued=True)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        rec = record(f"K4 grid_query ({level})", K4_SRC, (0.0, ms, plain_ms),
+                     nbytes, 0, F32_OPS_PER_S,
+                     "no PyTorch call computes a grid-hash 1-NN; the "
+                     "plain version's chunks are the yardstick")
+        rec["replaces_note"] = ("no Pallas kernel: the jitted "
+                                "grid_hash_query (XLA)")
+        rec["bit_equal"] = equal
+        rec["ms_table_as_built"] = ms_as_built
+        rec["ops_bound_ms"] = f32_ops / F32_OPS_PER_S * 1e3
+        log({"kernel": rec["name"], "input_shape": [K4_N, 3],
+             "target": [K4_N, 3], "dims": list(dims), "slots": slots,
+             "found": int((got[0] >= 0).sum()), "bit_equal": equal,
+             "ms": ms, "ms_table_as_built": ms_as_built,
+             "plain_ms": plain_ms, "bytes": nbytes,
+             "bound_ms": rec["bound_ms"], "f32_ops": f32_ops,
+             "ops_bound_ms": rec["ops_bound_ms"], "gpu": gpu_line})
+        records.append(rec)
+
+    nrm, _ = normals.estimate_normals_grid(tgt, mask, k=16,
+                                           radius=2.0 * voxel)
+    trips = {}
+    for n in ICP_TRIPS:
+        def icp(n=n):
+            return reg._icp(q, mask, tgt, mask, nrm, 1.5 * voxel, n, 0.0,
+                            None, (64, 64, 64), 4)
+
+        reg._icp.clear()
+        it = int(icp()[3])                               # captures
+        if it != n:
+            raise AssertionError(f"ICP ran {it} trips, not {n}")
+        trips[n] = cuda_ms(icp, iters=5, warmup=1, queued=True)
+    reg._icp.clear()
+    per_trip = float(np.polyfit(list(trips), list(trips.values()), 1)[0])
+    log({"phase": "icp_trips", "points": K4_N, "voxel_m": voxel,
+         "ms_at_trips": trips, "ms_per_trip": per_trip, "gpu": gpu_line})
+    for rec in records:
+        rec["icp_ms_at_trips"] = trips
+        rec["icp_ms_per_trip"] = per_trip
     return records
 
 
@@ -2785,7 +2895,7 @@ def capture_phase(dev, gpu_line):
 
 def registration_phase(dev, gpu_line):
     """The point-cloud registration path and the capture side on the
-    card, compiled; returns the records of its kernels, K1 and K2."""
+    card, compiled; returns the records of its kernels, K1, K2 and K4."""
     records = registration_1m(dev, gpu_line)
     registration_vs_cpu(dev)
     capture_phase(dev, gpu_line)
@@ -5503,7 +5613,8 @@ def main(argv=None) -> int:
         bench_counts, bench_graph = bench_phase(dev, gpu_line)
     keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
             "B4": "ccl_tiled", "B5": "patch_blk", "B6": "patch_exact",
-            "K1": "eig3", "K2": "kabsch3", "K3": "eig9"}
+            "K1": "eig3", "K2": "kabsch3", "K3": "eig9",
+            "K4": "grid_query"}
     for rec in records:
         key = keys[rec["name"][:2]]
         rec["launches_canopy_calib_eval"] = counts[key]

@@ -34,7 +34,7 @@ LIB_NAME = "librepas_kernels.so"
 # where it launches, and nowhere else; callers may reset the counts.
 launches = {"ccl": 0, "ccl_tiled": 0, "patch_extract": 0, "pointcloud": 0,
             "patch_blk": 0, "patch_exact": 0, "eig3": 0, "kabsch3": 0,
-            "eig9": 0}
+            "eig9": 0, "grid_query": 0}
 
 # an entry point's return code when the CUDA driver lacks a call (csrc/*.cu)
 NO_DRIVER_CALL = -100000
@@ -70,6 +70,11 @@ _SIGNATURES = {
     "repas_eig9": [_P, _P, _P, _P, _L, _I, _I, _P],
     # H, R, sweeps (or null), N, device, stream (csrc/kabsch3.cu)
     "repas_kabsch3": [_P, _P, _P, _L, _I, _P],
+    # cell_of, slot stride, cell stride, origin, cell, target, query,
+    # mask, idx, dist, Q, slots, nx, ny, nz, device, stream
+    # (csrc/grid_query.cu)
+    "repas_grid_query": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _L,
+                         _I, _I, _I, _I, _I, _P],
     # pred, body stream, device, stream (csrc/graph_if.cu)
     "repas_if_begin": [_P, _P, _I, _P],
     # body stream, device
