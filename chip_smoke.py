@@ -741,16 +741,42 @@ def ccl_plan(mask, cluster_ok=True):
     return out
 
 
-def check_b1(name, mask, iters):
+def ccl_rounds(kernel, call, device):
+    """Mean rounds an image ran in one call() of the band CCL, from the
+    program's device counter (row `kernel`: "b1" or "b4")."""
+    from repas_tpu_torch.kernels import ccl_cuda
+
+    before = ccl_cuda.counts(device)[kernel]
+    call()
+    after = ccl_cuda.counts(device)[kernel]
+    return ((after["rounds"] - before["rounds"])
+            / max(1, after["images"] - before["images"]))
+
+
+def check_b1(name, mask, iters, converge=False):
+    """B1 exactly against its plain version, as the caller called it
+    (`converge`: on to the fixed point, `iters` the least rounds). The
+    bound is at `iters` rounds, whatever ran; `rounds` is the mean an
+    image ran (the device counter), and `bound_share_at_rounds` the share
+    of the bound at those rounds."""
     from repas_tpu_torch.kernels import ccl, ccl_cuda
     plan = ccl_plan(mask)
+
+    def kern():
+        return ccl_cuda.connected_components_cuda(mask, iters, converge)
+
+    rounds = ccl_rounds("b1", kern, mask.device)
     rec = record(name, B1_SRC, hold(
-        name, mask.shape,
-        lambda: ccl_cuda.connected_components_cuda(mask, iters),
-        lambda: ccl.connected_components_plain(mask, iters), iters=iters,
-        plan=plan), *ccl_cost(mask, iters), INT32_OPS_PER_S, NO_LIBRARY_CCL)
+        name, mask.shape, kern,
+        lambda: ccl.connected_components_plain(mask, iters, converge),
+        iters=iters, converge=converge, rounds=rounds, plan=plan),
+        *ccl_cost(mask, iters), INT32_OPS_PER_S, NO_LIBRARY_CCL)
     rec["plan"] = plan
     rec["input_shape"] = list(mask.shape)
+    rec["converge"] = converge
+    rec["rounds"] = rounds
+    rec["bound_share_at_rounds"] = bound_of(
+        *ccl_cost(mask, rounds), INT32_OPS_PER_S)[0] / rec["ms"]
     return rec
 
 
@@ -910,11 +936,11 @@ def check_b6_edges(pyr, ph, pw):
 def check_kernels(captured):
     """Each kernel against its plain version on the card, at the main
     path's inputs; returns the kernel records (launches filled later)."""
-    (mask, iters), _ = captured["ccl"]
+    b1_args, _ = captured["ccl"]
     (pyr, origins, ah, aw), kw2 = captured["patch_extract"]
     (depth, rgb32, K), kw = captured["pointcloud"]
     return [
-        check_b1("B1 ccl", mask, iters),
+        check_b1("B1 ccl", *b1_args),
         check_b2("B2 patch_extract", pyr, origins, ah, aw, **kw2),
         check_b3("B3 pointcloud", depth, rgb32, K, kw["scale"]),
     ]
@@ -974,11 +1000,12 @@ def check_results(out, out_cpu0, dev_name):
          "frame0_ids": ids_gpu.tolist()})
 
 
-def check_b4(mask, iters, name="B4 ccl_tiled"):
+def check_b4(mask, iters, converge=False, name="B4 ccl_tiled"):
     """B4 on the ladder's first B4 input: the row unit on the initial
     labels, the column unit on the row unit's output, and the tiled CCL
-    (the band CCL in grid mode), each exactly against its plain version
-    (and the CCL against B1); CUDA-event times of kernel and plain."""
+    (the band CCL in grid mode, `converge` as called), each exactly
+    against its plain version (and the CCL against B1); CUDA-event times
+    of kernel and plain."""
     from repas_tpu_torch.kernels import ccl_cuda, ccl_tiled
 
     B, h, w = mask.shape
@@ -991,8 +1018,10 @@ def check_b4(mask, iters, name="B4 ccl_tiled"):
         ("columns", lambda: ccl_tiled.seg_scan_axis_cuda(mask, rows_plain, 1),
          lambda: ccl_tiled.seg_scan_axis_plain(mask, rows_plain, 1)),
         ("tiled_ccl",
-         lambda: ccl_tiled.connected_components_tiled_cuda(mask, iters),
-         lambda: ccl_tiled.connected_components_tiled_plain(mask, iters)),
+         lambda: ccl_tiled.connected_components_tiled_cuda(mask, iters,
+                                                           converge),
+         lambda: ccl_tiled.connected_components_tiled_plain(mask, iters,
+                                                            converge)),
     ]
     out = {}
     for unit, kern, plain in cases:
@@ -1004,12 +1033,16 @@ def check_b4(mask, iters, name="B4 ccl_tiled"):
                                  f"version at {bad} pixels")
         out[unit] = {"ms": cuda_ms(kern, queued=True),
                      "plain_ms": cuda_ms(plain, 5, 1)}
-    if not torch.equal(ccl_tiled.connected_components_tiled_cuda(mask, iters),
-                       ccl_cuda.connected_components_cuda(mask, iters)):
+    if not torch.equal(
+            ccl_tiled.connected_components_tiled_cuda(mask, iters, converge),
+            ccl_cuda.connected_components_cuda(mask, iters, converge)):
         raise AssertionError("B4 tiled CCL differs from B1's labels")
     plan = ccl_plan(mask, cluster_ok=False)
+    rounds = ccl_rounds("b4", lambda: ccl_tiled.connected_components_tiled_cuda(
+        mask, iters, converge), mask.device)
     log({"kernel": name, "input_shape": list(mask.shape),
-         "iters": iters, "foreground_frac": float(mask.float().mean()),
+         "iters": iters, "converge": converge, "rounds": rounds,
+         "foreground_frac": float(mask.float().mean()),
          "plan": plan, "max_abs_err": 0.0,
          **{f"{k}_{m}": v[m] for k, v in out.items()
             for m in ("ms", "plain_ms")}})
@@ -1055,8 +1088,7 @@ def robust_phase(dev, gpu_line):
     records += [check_b2(f"B2 patch_extract (ladder {tuple(a[0].shape)}, "
                          f"{a[2]}x{a[3]} windows)", *a, **kw)
                 for a, kw in cap2.calls]
-    (mask, iters), _ = cap.args
-    records.append(check_b4(mask, iters))
+    records.append(check_b4(*cap.args[0]))
 
     found_a = robust._stage_a(frames, cfg)[1].cpu().tolist()
     if found_a != ROBUST_FOUND_A:
@@ -3209,10 +3241,10 @@ def cad_chain_phase(dev, gpu_line, keep=None):
             cad_chain_apps(d)
 
         # B1 and B2 at the chain's shapes, exact against their plain twins
-        (mask, iters), _ = captured[0]
+        b1_args, _ = captured[0]
         (pyr, origins, ah, aw), kw = captured[1]
-        recs = [check_b1(f"B1 ccl (cad_chain {tuple(mask.shape)})", mask,
-                         iters),
+        recs = [check_b1(f"B1 ccl (cad_chain {tuple(b1_args[0].shape)})",
+                         *b1_args),
                 check_b2(f"B2 patch_extract (cad_chain {tuple(pyr.shape)}, "
                          f"{ah}x{aw} windows)", pyr, origins, ah, aw, **kw)]
         for rec in recs:
@@ -4586,9 +4618,9 @@ def apps_stream_phase(dev, gpu_line):
         records.append(check_b3(f"B3 pointcloud (apps_stream "
                                 f"{tuple(depth.shape)})", depth, rgb32, K,
                                 kw["scale"]))
-        (mask, iters), _ = b4
-        records.append(check_b4(mask, iters, f"B4 ccl_tiled (apps_stream "
-                                              f"{tuple(mask.shape)})"))
+        b4_args, _ = b4
+        records.append(check_b4(*b4_args, name=f"B4 ccl_tiled (apps_stream "
+                                               f"{tuple(b4_args[0].shape)})"))
         keys = {"B1": "ccl", "B2": "patch_extract", "B3": "pointcloud",
                 "B4": "ccl_tiled"}
         for rec in records:

@@ -10,7 +10,7 @@ loop over frames or candidates and no host sync.
 
   1. grayscale, decimate by quad_decimate              (kernels/image.py)
   2. tile adaptive threshold, low-contrast exclusion
-  3. connected components on dark pixels                (kernel B1)
+  3. connected components on dark pixels, converged     (kernel B1)
   4. ring-filtered top-K components
   5. extremal support points over 16 directions; quads
   6. bf16 row-concatenated pyramid; per-candidate windows (kernel B2)
@@ -20,6 +20,15 @@ loop over frames or candidates and no host sync.
 
 With ``with_candidates`` it also returns every candidate quad's bbox and
 tag-likeness score, which the robust ladder escalates on.
+
+Two departures from the reference make a tag turned in plane decode at
+any angle (the reference misses large turned tags, and tags turned near
+22.5 + 45k degrees): the labels run to their fixed point
+(``config.ccl_iters`` is the least number of rounds), so a turned
+border ring is one component; and a support point no longer lands
+outside its component where a slanted edge ties (``_support_points``'
+tie rule). Where the reference's labels had converged and no slanted
+edge tied, the two detectors agree bit for bit.
 
 ``detect_tags_jit`` is the compiled step (``core.jit``, ``config`` and
 ``with_candidates`` static as in the reference) beside ``detect_tags``,
@@ -92,7 +101,20 @@ def _support_points(labels: torch.Tensor, roots: torch.Tensor,
     Masked reductions over one label window per slot; components larger
     than a window use a stride-2^l subsample of the same ROI. Per row only
     the min-x and max-x member pixels are candidates: they contain a
-    maximizer for every direction, with the reference's tie handling.
+    maximizer for every direction.
+
+    Ties: the candidates within 1e-3 of a direction's maximum all support
+    it. The reference returns the largest x and the largest y among them,
+    the corner of their bounding box. Where a tag edge lies normal to the
+    direction at a slant, the tied pixels are a staircase and that corner
+    lies far outside the component (tens of pixels on a large tag turned
+    45 degrees), so the quad takes it and the decode fails. Here the
+    corner is returned where it is a tied candidate (an upright edge) or
+    where the tied candidates span at most one pixel (of the window's
+    level) in x and in y: two pixels beside a corner pixel that noise or
+    decimation removed, the corner itself. Otherwise the tied candidate
+    farthest along the direction turned +90 degrees: one end of the
+    tied edge, a pixel of the component.
     """
     B, h, w = labels.shape
     dev = labels.device
@@ -174,11 +196,35 @@ def _support_points(labels: torch.Tensor, roots: torch.Tensor,
     mx = torch.maximum(torch.amax(pm, dim=-1), proj_root)
     win = pm >= (mx[..., None] - 1e-3)
     root_win = proj_root >= (mx - 1e-3)
-    ux = torch.amax(torch.where(win, xs[..., None, :], neg), dim=-1)
-    uy = torch.amax(torch.where(win, ys[..., None, :], neg), dim=-1)
+    xw, yw = xs[..., None, :], ys[..., None, :]
+    ux = torch.amax(torch.where(win, xw, neg), dim=-1)
+    uy = torch.amax(torch.where(win, yw, neg), dim=-1)
     ux = torch.maximum(ux, torch.where(root_win, x_root, neg))
     uy = torch.maximum(uy, torch.where(root_win, y_root, neg))
-    return torch.stack([ux, uy], dim=-1)                  # (B,C,_NDIRS,2)
+    # keep (ux, uy) where it is a tied candidate, or where the tied
+    # candidates span at most a pixel of the level (their low corner)
+    lx = torch.minimum(torch.amin(torch.where(win, xw, -neg), dim=-1),
+                       torch.where(root_win, x_root, -neg))
+    ly = torch.minimum(torch.amin(torch.where(win, yw, -neg), dim=-1),
+                       torch.where(root_win, y_root, -neg))
+    keep = (torch.any(win & (xw == ux[..., None]) & (yw == uy[..., None]),
+                      dim=-1)
+            | (root_win & (x_root == ux) & (y_root == uy))
+            | ((ux - lx <= scale[..., None]) & (uy - ly <= scale[..., None])))
+    # else the tied candidate farthest along (-sin, cos); distinct tied
+    # points differ there by about a pixel, so only a repeated point ties
+    perp = torch.where(win, ys[..., None, :] * c[:, None]
+                       - xs[..., None, :] * s[:, None], neg)
+    perp_root = torch.where(root_win, y_root * c - x_root * s, neg)
+    pmx = torch.maximum(torch.amax(perp, dim=-1), perp_root)
+    end = win & (perp >= pmx[..., None])
+    end_root = root_win & (perp_root >= pmx)
+    ex = torch.maximum(torch.amax(torch.where(end, xw, neg), dim=-1),
+                       torch.where(end_root, x_root, neg))
+    ey = torch.maximum(torch.amax(torch.where(end, yw, neg), dim=-1),
+                       torch.where(end_root, y_root, neg))
+    return torch.stack([torch.where(keep, ux, ex),
+                        torch.where(keep, uy, ey)], dim=-1)  # (B,C,_NDIRS,2)
 
 
 def _tri_area(a, b, c):
@@ -507,7 +553,8 @@ def detect_tags(img: torch.Tensor,
     binary, ambiguous = adaptive_threshold(gray_lo, tile=config.tile,
                                            min_contrast=config.min_contrast)
     dark = (~binary) & (~ambiguous)
-    labels = connected_components(dark, iters=config.ccl_iters)
+    labels = connected_components(dark, iters=config.ccl_iters,
+                                  converge=True)
     roots, areas, valid_c, bbox = top_k_components(
         labels, config.max_components,
         min_area=config.min_area_px / (dec * dec),

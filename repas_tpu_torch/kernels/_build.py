@@ -48,9 +48,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # mask, out, aux, B, H, W, iters, cluster, band_rows, group, device,
-    # stream
-    "repas_ccl": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # mask, out, aux, B, H, W, iters, converge, counter, cluster,
+    # band_rows, group, device, stream
+    "repas_ccl": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # device, unsigned long long[6] out
+    "repas_ccl_counts": [_I, _P],
     # W, device, int[4] out
     "repas_ccl_limits": [_I, _I, _P],
     # cluster, band_rows, W, device, int* out
@@ -173,6 +175,11 @@ def library() -> ctypes.CDLL:
             lib.repas_error_string.argtypes = [ctypes.c_int]
             lib.repas_error_string.restype = ctypes.c_char_p
             _lib = lib
+    return _lib
+
+
+def loaded():
+    """The kernel library if this process has loaded it, else None."""
     return _lib
 
 

@@ -12,6 +12,15 @@ H*W. ``iters`` rounds of forward+backward segmented min-scans along rows,
 then along columns, then an 8-neighbour min stencil. The result is the
 fixed-iteration labelling, bit for bit: a component that has not
 converged in ``iters`` rounds keeps the labels the reference gives it.
+
+With ``converge=True`` the labels go on from ``iters`` rounds to the
+rounds' fixed point (the card's kernels by more rounds, the plain
+versions by hooks and jumps): every 8-connected component then carries
+one label, its least linear index (the JAX package has no such mode).
+Where the fixed-round labels had converged, the two are equal. The
+detector asks for this: a tag's border ring turned in plane is a
+staircase that each round walks only about one border width along, so
+a large turned ring needs more rounds than an upright one.
 """
 from __future__ import annotations
 
@@ -25,8 +34,11 @@ import torch.nn.functional as F
 MAX_VMEM_PIXELS = 512 * 1024
 
 
-def connected_components(mask: torch.Tensor, iters: int = 5) -> torch.Tensor:
-    """8-connected labels of a (B,H,W) bool mask -> (B,H,W) int32.
+def connected_components(mask: torch.Tensor, iters: int = 5,
+                         converge: bool = False) -> torch.Tensor:
+    """8-connected labels of a (B,H,W) bool mask -> (B,H,W) int32:
+    `iters` rounds, or with `converge` at least `iters` and then on to
+    the fixed point.
 
     Up to MAX_VMEM_PIXELS per image, a CUDA tensor goes through kernel B1
     (ccl_cuda.py), above it through kernel B4 (ccl_tiled.py); a CPU
@@ -35,11 +47,11 @@ def connected_components(mask: torch.Tensor, iters: int = 5) -> torch.Tensor:
     if mask.shape[-2] * mask.shape[-1] > MAX_VMEM_PIXELS:
         from repas_tpu_torch.kernels.ccl_tiled import \
             connected_components_tiled
-        return connected_components_tiled(mask, iters)
+        return connected_components_tiled(mask, iters, converge)
     if mask.is_cuda:
         from repas_tpu_torch.kernels.ccl_cuda import connected_components_cuda
-        return connected_components_cuda(mask, iters)
-    return connected_components_plain(mask, iters)
+        return connected_components_cuda(mask, iters, converge)
+    return connected_components_plain(mask, iters, converge)
 
 
 def _seg_min_scan(lab: torch.Tensor, brk: torch.Tensor, dim: int,
@@ -79,23 +91,79 @@ def _neighbor_min(lab: torch.Tensor, sentinel: int) -> torch.Tensor:
     return m
 
 
-def connected_components_plain(mask: torch.Tensor, iters: int = 5
-                               ) -> torch.Tensor:
-    """Plain PyTorch CCL: the spec the CUDA kernel is held to."""
-    B, h, w = mask.shape
-    sentinel = h * w
+def initial_labels(mask: torch.Tensor) -> torch.Tensor:
+    """Each foreground pixel's linear index, the sentinel H*W elsewhere."""
+    h, w = mask.shape[-2:]
     idx = torch.arange(h * w, dtype=torch.int32,
                        device=mask.device).reshape(h, w)
-    labels = torch.where(mask, idx, sentinel)
-    brk = ~mask
+    return torch.where(mask, idx, h * w)
+
+
+def _jump(labels: torch.Tensor) -> torch.Tensor:
+    """Each label replaced by the label of the pixel it names, again until
+    none changes. A label is always the index of a pixel of its own
+    component, so this only walks the labels down their chains inside
+    each component (the sentinel names no pixel and stays)."""
+    flat = labels.reshape(labels.shape[0], -1).to(torch.int64)
+    while True:
+        nxt = torch.gather(F.pad(flat, (0, 1), value=flat.shape[1]), 1,
+                           flat)
+        if torch.equal(nxt, flat):
+            return nxt.reshape(labels.shape).to(labels.dtype)
+        flat = nxt
+
+
+def _hook(labels: torch.Tensor) -> torch.Tensor:
+    """The converged labels from labels that each name a pixel of their
+    own component: jump along the label chains (``_jump``), then hook
+    each root that has a smaller root among its 8 neighbours onto the
+    least of them, until no root has (host reads: the plain versions).
+    A hook merges whole fragments at once, where a round moves a label
+    along a staircase about one border width."""
+    B = labels.shape[0]
+    sentinel = labels.shape[-2] * labels.shape[-1]
+    fg = labels != sentinel
+    while True:
+        labels = _jump(labels)
+        m = torch.where(fg, _neighbor_min(labels, sentinel), sentinel)
+        if not bool(torch.any(m < labels)):
+            return labels
+        roots = F.pad(labels.reshape(B, -1).to(torch.int64), (0, 1),
+                      value=sentinel)
+        least = F.pad(m.reshape(B, -1).to(torch.int64), (0, 1),
+                      value=sentinel)
+        roots = roots.scatter_reduce(1, roots, least, "amin")
+        labels = roots[:, :sentinel].reshape(labels.shape).to(labels.dtype)
+
+
+def run_rounds(round_fn, labels: torch.Tensor, iters: int,
+               converge: bool) -> torch.Tensor:
+    """`iters` rounds of `round_fn`; with `converge`, then on to the
+    fixed point of the rounds by hooks and jumps (``_hook``). A fixed
+    point gives each component one label, and the only label it can
+    hold is its least index: the converged labels are the same whatever
+    reaches them, and hooks take the CPU there in a few passes where the
+    card's kernel runs more rounds."""
     for _ in range(iters):
+        labels = round_fn(labels)
+    return _hook(labels) if converge else labels
+
+
+def connected_components_plain(mask: torch.Tensor, iters: int = 5,
+                               converge: bool = False) -> torch.Tensor:
+    """Plain PyTorch CCL: the spec the CUDA kernel is held to."""
+    sentinel = mask.shape[-2] * mask.shape[-1]
+    brk = ~mask
+
+    def one_round(labels):
         for dim in (2, 1):
             for reverse in (False, True):
                 labels = torch.where(
                     mask, _seg_min_scan(labels, brk, dim, reverse, sentinel),
                     sentinel)
-        labels = torch.where(mask, _neighbor_min(labels, sentinel), sentinel)
-    return labels
+        return torch.where(mask, _neighbor_min(labels, sentinel), sentinel)
+
+    return run_rounds(one_round, initial_labels(mask), iters, converge)
 
 
 def component_areas(labels: torch.Tensor) -> torch.Tensor:

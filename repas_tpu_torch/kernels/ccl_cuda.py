@@ -11,8 +11,13 @@ image (one launch per call) or, for images no cluster of 16 holds, in
 cooperative launches over groups of images (one launch per group).
 ``plan_bands`` chooses the mode, the band height, the cluster size and
 the groups from the card's limits. The result is the fixed-iteration
-labelling of ``ccl.connected_components_plain``, bit for bit. See the
-source's header for what bounds it on the H100.
+labelling of ``ccl.connected_components_plain``, bit for bit, or with
+``converge`` its converged labelling: the bands of an image (of a launch,
+in grid mode) agree after each round past ``iters`` whether any label
+changed, and stop when none did, with no host read. Every call adds the
+rounds each image ran, its images and one call to a counter on the card
+(``counts`` reads it). See the source's header for what bounds it on the
+H100.
 """
 from __future__ import annotations
 
@@ -33,6 +38,11 @@ CLUSTER_SIZES = tuple(range(1, 17))
 # int arrays of W that a band publishes: its two column aggregates, its
 # columns' first background rows and its two edge rows
 AUX_ROWS = 5
+# ints after them: the converging rounds' change flags (two, alternating
+# by round), padded to 16 bytes
+FLAG_INTS = 4
+# the device counter's rows (``csrc/ccl.cu``): B1's calls and B4's
+COUNTER_B1, COUNTER_B4 = 0, 1
 # what a band costs per round beside its rows (three synchronisations,
 # the carry folds, the lanes' shuffle scans), in rows of work
 BAND_OVERHEAD_ROWS = 16
@@ -59,8 +69,9 @@ def row_pitch(w: int) -> int:
 def band_smem(rows: int, w: int, cluster: bool) -> int:
     """Dynamic shared memory of one band CTA (``ccl.cu::band_smem``): its
     int32 labels at the padded row pitch and, in cluster mode, the
-    published arrays, rounded up to 16 bytes."""
-    ints = rows * row_pitch(w) + (AUX_ROWS * w if cluster else 0)
+    published arrays and the change flags, rounded up to 16 bytes."""
+    ints = rows * row_pitch(w) + (AUX_ROWS * w + FLAG_INTS if cluster
+                                  else 0)
     return -(-4 * ints // 16) * 16
 
 
@@ -183,25 +194,51 @@ def check_mask(name: str, mask: torch.Tensor, iters: int) -> None:
                          "(H*W must fit int32, B at most 65535)")
 
 
-def run_plan(mask: torch.Tensor, iters: int, plan: BandPlan) -> torch.Tensor:
-    """Launch the band CCL of ``csrc/ccl.cu`` on a checked CUDA mask."""
+def run_plan(mask: torch.Tensor, iters: int, plan: BandPlan,
+             converge: bool = False, counter: int = COUNTER_B1
+             ) -> torch.Tensor:
+    """Launch the band CCL of ``csrc/ccl.cu`` on a checked CUDA mask,
+    counted in row `counter` of the device counter."""
     B, h, w = mask.shape
     mask = mask.contiguous()
     out = torch.empty((B, h, w), dtype=torch.int32, device=mask.device)
     aux = None
     if plan.mode == "grid":
-        aux = torch.empty(plan.group * plan.bands * AUX_ROWS * w,
+        aux = torch.empty(plan.group * plan.bands * AUX_ROWS * w + FLAG_INTS,
                           dtype=torch.int32, device=mask.device)
     _build.launch("repas_ccl", mask.device, mask.data_ptr(), out.data_ptr(),
                   aux.data_ptr() if aux is not None else None, B, h, w, iters,
-                  plan.cluster, plan.band_rows, plan.group)
+                  int(converge), counter, plan.cluster, plan.band_rows,
+                  plan.group)
     return out
 
 
-def connected_components_cuda(mask: torch.Tensor, iters: int = 5
-                              ) -> torch.Tensor:
-    """(B,H,W) bool mask on a CUDA device -> (B,H,W) int32 labels."""
+def connected_components_cuda(mask: torch.Tensor, iters: int = 5,
+                              converge: bool = False) -> torch.Tensor:
+    """(B,H,W) bool mask on a CUDA device -> (B,H,W) int32 labels:
+    `iters` rounds, or with `converge` at least `iters` and on to the
+    fixed point."""
     check_mask("connected_components_cuda", mask, iters)
-    out = run_plan(mask, iters, plan_for(mask))
+    out = run_plan(mask, iters, plan_for(mask), converge, COUNTER_B1)
     _build.launches["ccl"] += 1
     return out
+
+
+def counts(device=None) -> dict:
+    """The band CCL's device counter on a CUDA `device` (default the
+    current one), read after a synchronisation: per kernel ("b1", "b4")
+    the rounds its images ran, summed, its images and its calls, since
+    the library was loaded. Launches inside replayed graphs count too.
+    Zeros where no kernel was built in this process."""
+    names = ("b1", "b4")
+    if _build.loaded() is None:
+        return {k: {"rounds": 0, "images": 0, "calls": 0} for k in names}
+    dev = torch.device("cuda" if device is None else device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize(dev)
+    out = (ctypes.c_ulonglong * 6)()
+    _build.check("repas_ccl_counts",
+                 _build.library().repas_ccl_counts(dev.index, out))
+    return {k: {"rounds": out[3 * i], "images": out[3 * i + 1],
+                "calls": out[3 * i + 2]} for i, k in enumerate(names)}

@@ -8,7 +8,8 @@ labels and returns the forward then backward segmented min-scan along
 rows or columns, background reset to the sentinel H*W: the direct
 counterpart of ``_make_scan_kernel``. The tiled CCL runs ``iters`` rounds
 of row unit, column unit and the 8-neighbour stencil, as
-``connected_components_pallas_tiled`` does; on the card it is B1's
+``connected_components_pallas_tiled`` does (or, with ``converge``, on to
+the fixed point, deciding on the card); on the card it is B1's
 band-resident kernel (``csrc/ccl.cu``) in grid mode, always: cooperative
 launches over groups of images, each band's labels in shared memory for
 all rounds, one launch per group. Its labels equal B1's bit for bit.
@@ -23,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from repas_tpu_torch.kernels import _build, ccl_cuda
-from repas_tpu_torch.kernels.ccl import _neighbor_min, _seg_min_scan
+from repas_tpu_torch.kernels.ccl import (_neighbor_min, _seg_min_scan,
+                                         initial_labels, run_rounds)
 
 # rows per chunk of the column unit's three-pass scan
 COL_CHUNK = 16
@@ -52,20 +54,19 @@ def seg_scan_axis_plain(mask: torch.Tensor, labels: torch.Tensor,
     return lab
 
 
-def connected_components_tiled_plain(mask: torch.Tensor, iters: int = 5
-                                     ) -> torch.Tensor:
+def connected_components_tiled_plain(mask: torch.Tensor, iters: int = 5,
+                                     converge: bool = False) -> torch.Tensor:
     """Plain tiled CCL of (B,H,W) masks: per round the row unit, the
-    column unit, then the 8-neighbour stencil."""
-    B, h, w = mask.shape
-    sentinel = h * w
-    idx = torch.arange(h * w, dtype=torch.int32,
-                       device=mask.device).reshape(h, w)
-    labels = torch.where(mask, idx, sentinel)
-    for _ in range(iters):
+    column unit, then the 8-neighbour stencil; with `converge`, on to
+    the rounds' fixed point (``ccl.run_rounds``)."""
+    sentinel = mask.shape[1] * mask.shape[2]
+
+    def one_round(labels):
         labels = seg_scan_axis_plain(mask, labels, 2)
         labels = seg_scan_axis_plain(mask, labels, 1)
-        labels = torch.where(mask, _neighbor_min(labels, sentinel), sentinel)
-    return labels
+        return torch.where(mask, _neighbor_min(labels, sentinel), sentinel)
+
+    return run_rounds(one_round, initial_labels(mask), iters, converge)
 
 
 def _check_mask(name: str, mask: torch.Tensor) -> None:
@@ -105,21 +106,22 @@ def seg_scan_axis_cuda(mask: torch.Tensor, labels: torch.Tensor,
     return out
 
 
-def connected_components_tiled_cuda(mask: torch.Tensor, iters: int = 5
-                                    ) -> torch.Tensor:
+def connected_components_tiled_cuda(mask: torch.Tensor, iters: int = 5,
+                                    converge: bool = False) -> torch.Tensor:
     """Tiled CCL on the card: (B,H,W) bool mask -> (B,H,W) int32 labels,
-    the band CCL in grid mode."""
+    the band CCL in grid mode (`converge`: as ``ccl_cuda``'s)."""
     ccl_cuda.check_mask("connected_components_tiled_cuda", mask, iters)
     out = ccl_cuda.run_plan(mask, iters,
-                            ccl_cuda.plan_for(mask, cluster_ok=False))
+                            ccl_cuda.plan_for(mask, cluster_ok=False),
+                            converge, ccl_cuda.COUNTER_B4)
     _build.launches["ccl_tiled"] += 1
     return out
 
 
-def connected_components_tiled(mask: torch.Tensor, iters: int = 5
-                               ) -> torch.Tensor:
+def connected_components_tiled(mask: torch.Tensor, iters: int = 5,
+                               converge: bool = False) -> torch.Tensor:
     """Tiled CCL: the kernel on a CUDA tensor, the plain version on a CPU
     one."""
     if mask.is_cuda:
-        return connected_components_tiled_cuda(mask, iters)
-    return connected_components_tiled_plain(mask, iters)
+        return connected_components_tiled_cuda(mask, iters, converge)
+    return connected_components_tiled_plain(mask, iters, converge)

@@ -12,6 +12,18 @@
 //   3. the 8-neighbour min stencil, background kept at the sentinel.
 // Min is exact and associative, so any decomposition of the scans gives
 // the reference's labels, including components that have not converged.
+// With `converge`, `iters` is the least number of rounds: from then on the
+// bands agree after each round whether it changed any label and stop after
+// the first that changed none, so every 8-connected component ends with
+// one label, its least linear index (a tag's border ring turned in plane
+// is a staircase that a round walks only about one border width along).
+// A round changed nothing where the vertical stencil's minima repeat those
+// of the round before (labels only fall, so each thread compares the sum
+// of its columns' minima); then the labels before it were a fixed point.
+// That costs one more synchronisation a round past `iters`, and the stop
+// comes two rounds after the labels first converge. Every call adds the
+// rounds each image ran, the images and one call to a device counter
+// (g_counts, read by repas_ccl_counts), inside replayed graphs too.
 //
 // Bound on the H100: operations, 13 int32 min/select per pixel per round
 // (0.24 G at (16,360,640), 14 us at the int32 rate), over the bytes (the
@@ -41,13 +53,17 @@
 //            pass, and after a synchronisation a vertical 3-min per column
 //            marks background; the horizontal 3-min opens the next row
 //            pass (after the last round, a pass of its own).
-// Two synchronisations per round, in one of two scopes:
+// Two synchronisations per round (three past `iters` with `converge`), in
+// one of two scopes:
 //   cluster  one thread-block cluster of 1 to 16 CTAs per image:
-//            aggregates and edge rows live in shared memory and are read
-//            through distributed shared memory; one launch per call;
+//            aggregates, edge rows and change flags live in shared memory
+//            and are read through distributed shared memory; one launch
+//            per call; each image stops converging on its own;
 //   grid     one cooperative launch over the bands of a group of images,
 //            every CTA resident; aggregates and edge rows go through a
-//            small global buffer (L2), read past L1; one launch per group.
+//            small global buffer (L2), read past L1, the change flags
+//            through atomics at its end; one launch per group, whose
+//            images stop converging together.
 // The launch plan (band rows, cluster size, images per launch) is made by
 // the Python wrapper (kernels/ccl_cuda.py::plan_bands). A launch the card
 // refuses returns its error; there is no fallback. Measured, the kernel
@@ -76,6 +92,13 @@ constexpr int kThreads = 640;   // threads of a band CTA
 enum { kDown, kUp, kFirstBg, kTop, kBot, kAux };
 // band aggregates a carry fold loads at once
 constexpr int kFoldBatch = 8;
+// ints after the published arrays: two change flags, used by alternate
+// rounds, padded to 16 bytes
+constexpr int kFlagInts = 4;
+
+// The device counter, per kernel (row 0 B1's calls, row 1 B4's): the
+// rounds its images ran, summed, its images, its calls.
+__device__ unsigned long long g_counts[2][3];
 
 // One 32-wide chunk of a segmented inclusive min-scan: lane i holds
 // (v, brk) and ends with the min back to the last break at or before it,
@@ -335,9 +358,19 @@ __device__ __forceinline__ void band_row_min3(int* L, int s, int sent,
 // of one image synchronise.
 struct ClusterScope {
   static constexpr bool kCluster = true;
-  int* aux;   // this CTA's kAux * W ints of shared memory
+  int* aux;   // this CTA's kAux * W ints of shared memory, then its flags
   int W;
   __device__ int* mine(int, int slot) const { return aux + slot * W; }
+  // change flag `p` of this band (one thread), and whether any band of
+  // the image set theirs (after a sync)
+  __device__ void put_flag(int p, int v) const { aux[kAux * W + p] = v; }
+  __device__ bool any_flag(int p, int nb) const {
+    int any = 0;
+    for (int j = 0; j < nb; ++j)
+      any |= *cg::this_cluster().map_shared_rank(aux + kAux * W + p, j);
+    return any != 0;
+  }
+  __device__ void clear_flag(int) const {}
   __device__ const int* theirs(int band, int slot) const {
     return cg::this_cluster().map_shared_rank(aux + slot * W, band);
   }
@@ -353,10 +386,21 @@ struct ClusterScope {
 
 struct GridScope {
   static constexpr bool kCluster = false;
-  int* aux;   // this image's nb * kAux * W ints of device memory
+  int* aux;     // this image's nb * kAux * W ints of device memory
+  int* flags;   // the launch's two change flags, after every image's aux
   int W;
   __device__ int* mine(int band, int slot) const {
     return aux + ((size_t)band * kAux + slot) * W;
+  }
+  // flag `p` is the launch's: a band that changed a label sets it, and
+  // the launch's first thread clears it a round before its next use
+  __device__ void put_flag(int p, int v) const {
+    if (v) atomicOr(flags + p, 1);
+  }
+  __device__ bool any_flag(int p, int) const { return __ldcg(flags + p); }
+  __device__ void clear_flag(int p) const {
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+      __stcg(flags + p, 0);
   }
   __device__ const int* theirs(int band, int slot) const {
     return mine(band, slot);
@@ -368,11 +412,11 @@ struct GridScope {
 };
 
 // Shared memory of a band CTA: its labels at the padded pitch, then the
-// published arrays in cluster scope, rounded up to 16 bytes. The wrapper's
-// plan mirrors this (ccl_cuda.py::band_smem).
+// published arrays and the change flags in cluster scope, rounded up to 16
+// bytes. The wrapper's plan mirrors this (ccl_cuda.py::band_smem).
 size_t band_smem(int band_rows, int W, bool cluster) {
   const size_t ints = (size_t)band_rows * 32 * seg_len(W) +
-                      (cluster ? (size_t)kAux * W : 0);
+                      (cluster ? (size_t)kAux * W + kFlagInts : 0);
   return (4 * ints + 15) / 16 * 16;
 }
 
@@ -460,13 +504,18 @@ __device__ __forceinline__ void col_up(const Scope& sc, int* lab, int band,
 // The vertical half of the stencil on column x (pitch P) in place: the
 // min of each pixel and its two column neighbours (the neighbouring
 // bands' edge rows at the band's ends), marked on background; the
-// previous row's old value rides in a register.
-__device__ __forceinline__ void col_min3(int* lab, int x, int rows, int P,
-                                         int sent, int above, int below) {
-  if (!rows) return;
+// previous row's old value rides in a register. With kSum, returns the
+// sum of the foreground pixels' minima.
+template <bool kSum>
+__device__ __forceinline__ long long col_min3(int* lab, int x, int rows,
+                                              int P, int sent, int above,
+                                              int below) {
+  long long sum = 0;
+  if (!rows) return sum;
   auto put = [&](int i, int prev, int cur, int nxt) {
     const int m = min(prev, min(cur, nxt));
     lab[i] = cur == sent ? (int)((unsigned)m | kBgBit) : m;
+    if (kSum) sum += cur == sent ? 0 : m;
   };
   int prev = above, cur = lab[x];
   for (int r = 0; r + 1 < rows; ++r) {
@@ -476,16 +525,20 @@ __device__ __forceinline__ void col_min3(int* lab, int x, int rows, int P,
     cur = nxt;
   }
   put((rows - 1) * P + x, prev, cur, below);
+  return sum;
 }
 
 // One band of one image: blockIdx.x is the band, blockIdx.y the image of
 // this launch. Bands past the image's last row hold no rows; they publish
 // the scans' identity and sentinel edges. kSeg > 0 is the row segment
 // length of a register-resident row pass (W's seg_len), 0 for any W.
-template <class Scope, int kSeg>
+// kConverge: rounds past `iters` until one changes nothing. The rounds
+// are counted in row `counter` of g_counts, the call where count_call.
+template <class Scope, int kSeg, bool kConverge>
 __global__ void __launch_bounds__(kThreads, kSeg > 21 ? 1 : 2)
     ccl_band(const uint8_t* __restrict__ mask, int* __restrict__ out,
-             int* __restrict__ gaux, int H, int W, int iters, int band_rows) {
+             int* __restrict__ gaux, int H, int W, int iters, int band_rows,
+             int counter, int count_call) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int band = blockIdx.x, nb = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -495,9 +548,13 @@ __global__ void __launch_bounds__(kThreads, kSeg > 21 ? 1 : 2)
   const int y0 = band * band_rows;
   const int rows = max(0, min(band_rows, H - y0));
   int* lab = reinterpret_cast<int*>(smem);
-  Scope sc{Scope::kCluster ? lab + (size_t)band_rows * P
-                           : gaux + (size_t)blockIdx.y * nb * kAux * W,
-           W};
+  Scope sc;
+  if constexpr (Scope::kCluster) {
+    sc = Scope{lab + (size_t)band_rows * P, W};
+  } else {
+    sc = Scope{gaux + (size_t)blockIdx.y * nb * kAux * W,
+               gaux + (size_t)gridDim.y * nb * kAux * W, W};
+  }
 
   // the band's mask, read once, as initial labels; background padding
   const size_t img = (size_t)blockIdx.y * H * W + (size_t)y0 * W;
@@ -507,7 +564,11 @@ __global__ void __launch_bounds__(kThreads, kSeg > 21 ? 1 : 2)
           x < W && mask[img + r * W + x] ? (y0 + r) * W + x : sent;
   __syncthreads();
 
-  for (int it = 0; it < iters; ++it) {
+  // with kConverge, the sum of this thread's columns' vertical minima in
+  // the last round (none before the first)
+  long long last_sum = -1;
+  int it = 0;   // rounds done
+  for (;;) {
     // 1. rows, after the horizontal half of the last round's stencil
     for (int r = warp; r < rows; r += nwarps) {
       if (it)
@@ -522,18 +583,32 @@ __global__ void __launch_bounds__(kThreads, kSeg > 21 ? 1 : 2)
     for (int x = tid; x < W; x += kThreads)
       col_down(sc, lab, band, x, rows, P, sent);
     sc.sync();
+    // every band has read the flag of two rounds back: it may be reused
+    if constexpr (kConverge) sc.clear_flag((it + 1) & 1);
     for (int x = tid; x < W; x += kThreads)
       col_up(sc, lab, band, nb, x, rows, P, sent);
     sc.sync();
 
     // 3. stencil, vertical half; the horizontal half opens the next
     // round's row pass
+    long long sum = 0;
     for (int x = tid; x < W; x += kThreads)
-      col_min3(lab, x, rows, P, sent,
-               band > 0 ? sc.load(sc.theirs(band - 1, kBot) + x) : sent,
-               band + 1 < nb ? sc.load(sc.theirs(band + 1, kTop) + x)
-                             : sent);
-    __syncthreads();
+      sum += col_min3<kConverge>(
+          lab, x, rows, P, sent,
+          band > 0 ? sc.load(sc.theirs(band - 1, kBot) + x) : sent,
+          band + 1 < nb ? sc.load(sc.theirs(band + 1, kTop) + x) : sent);
+    ++it;
+    if constexpr (kConverge) {
+      const int changed = __syncthreads_or(sum != last_sum);
+      last_sum = sum;
+      if (it < max(iters, 2)) continue;
+      if (tid == 0) sc.put_flag(it & 1, changed);
+      sc.sync();
+      if (!sc.any_flag(it & 1, nb)) break;
+    } else {
+      __syncthreads();
+      if (it == iters) break;
+    }
   }
   for (int r = warp; r < rows; r += nwarps)
     band_row_min3(lab + r * P, s, sent, lane);
@@ -546,6 +621,11 @@ __global__ void __launch_bounds__(kThreads, kSeg > 21 ? 1 : 2)
   for (int r = 0; r < rows; ++r)
     for (int x = tid; x < W; x += kThreads)
       out[img + r * W + x] = lab[r * P + x];
+  if (band == 0 && tid == 0) {
+    atomicAdd(&g_counts[counter][0], (unsigned long long)it);
+    atomicAdd(&g_counts[counter][1], 1ull);
+    if (count_call && blockIdx.y == 0) atomicAdd(&g_counts[counter][2], 1ull);
+  }
 }
 
 // Row pass over device memory, B4's row unit: one warp per (frame, row),
@@ -602,54 +682,77 @@ struct ClusterConfig {
   }
 };
 
+// Calls f with std::integral_constant<bool, converge>.
+template <class F>
+cudaError_t with_converge(int converge, F&& f) {
+  return converge ? f(std::true_type()) : f(std::false_type());
+}
+
 }  // namespace
 
-// The band-resident CCL: mask (B,H,W) uint8 -> out (B,H,W) int32. With
+// The band-resident CCL: mask (B,H,W) uint8 -> out (B,H,W) int32, `iters`
+// rounds, or with `converge` at least `iters` and on to the fixed point,
+// counted in row `counter` (0 B1, 1 B4) of the device counter. With
 // cluster > 0, one cluster of `cluster` bands per image, one launch; with
 // cluster == 0, cooperative launches over `group` images at a time, bands
 // of `band_rows` rows, `aux` holding group * ceil(H/band_rows) * kAux * W
-// ints. Returns the first launch's error, if any.
+// + kFlagInts ints. Returns the first launch's error, if any.
 extern "C" int repas_ccl(const void* mask, void* out, void* aux, int B, int H,
-                         int W, int iters, int cluster, int band_rows,
-                         int group, int device, void* stream) {
+                         int W, int iters, int converge, int counter,
+                         int cluster, int band_rows, int group, int device,
+                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (band_rows < 1 || iters < 1 || (cluster == 0 && group < 1))
+  if (band_rows < 1 || iters < 1 || (cluster == 0 && group < 1) ||
+      counter < 0 || counter > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* m = (const uint8_t*)mask;
   int* o = (int*)out;
   const size_t smem = band_smem(band_rows, W, cluster > 0);
   return (int)with_seg(W, [&](auto seg) {
-    constexpr int kSeg = decltype(seg)::value;
-    cudaError_t e;
-    if (cluster > 0) {
-      auto kern = ccl_band<ClusterScope, kSeg>;
-      if ((e = prepare(kern, smem, cluster)) != cudaSuccess) return e;
-      ClusterConfig cc(cluster, B, smem, s);
-      int* no_aux = nullptr;
-      if ((e = cudaLaunchKernelEx(&cc.cfg, kern, m, o, no_aux, H, W, iters,
-                                  band_rows)) != cudaSuccess)
-        return e;
+    return with_converge(converge, [&](auto conv) {
+      constexpr int kSeg = decltype(seg)::value;
+      constexpr bool kConv = decltype(conv)::value;
+      cudaError_t e;
+      if (cluster > 0) {
+        auto kern = ccl_band<ClusterScope, kSeg, kConv>;
+        if ((e = prepare(kern, smem, cluster)) != cudaSuccess) return e;
+        ClusterConfig cc(cluster, B, smem, s);
+        int* no_aux = nullptr;
+        if ((e = cudaLaunchKernelEx(&cc.cfg, kern, m, o, no_aux, H, W, iters,
+                                    band_rows, counter, 1)) != cudaSuccess)
+          return e;
+        return cudaGetLastError();
+      }
+      auto kern = ccl_band<GridScope, kSeg, kConv>;
+      if ((e = prepare(kern, smem, 0)) != cudaSuccess) return e;
+      const int nb = (H + band_rows - 1) / band_rows;
+      for (int b0 = 0; b0 < B; b0 += group) {
+        const int g = min(group, B - b0);
+        const uint8_t* mg = m + (size_t)b0 * H * W;
+        int* og = o + (size_t)b0 * H * W;
+        int* ag = (int*)aux;
+        int first = b0 == 0;
+        void* args[] = {&mg, &og, &ag, &H, &W, &iters, &band_rows,
+                        &counter, &first};
+        if ((e = cudaLaunchCooperativeKernel((const void*)kern,
+                                             dim3(nb, g, 1),
+                                             dim3(kThreads, 1, 1), args,
+                                             smem, s)) != cudaSuccess)
+          return e;
+      }
       return cudaGetLastError();
-    }
-    auto kern = ccl_band<GridScope, kSeg>;
-    if ((e = prepare(kern, smem, 0)) != cudaSuccess) return e;
-    const int nb = (H + band_rows - 1) / band_rows;
-    for (int b0 = 0; b0 < B; b0 += group) {
-      const int g = min(group, B - b0);
-      const uint8_t* mg = m + (size_t)b0 * H * W;
-      int* og = o + (size_t)b0 * H * W;
-      int* ag = (int*)aux;
-      void* args[] = {&mg, &og, &ag, &H, &W, &iters, &band_rows};
-      if ((e = cudaLaunchCooperativeKernel((const void*)kern,
-                                           dim3(nb, g, 1),
-                                           dim3(kThreads, 1, 1), args, smem,
-                                           s)) != cudaSuccess)
-        return e;
-    }
-    return cudaGetLastError();
+    });
   });
+}
+
+// The device counter (g_counts) into out[6]: B1's rounds, images and
+// calls, then B4's, since the library was loaded on `device`.
+extern "C" int repas_ccl_counts(int device, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(out, g_counts, sizeof(g_counts));
 }
 
 // What the launch plan needs from the card for rows of width W: out[0]
@@ -669,7 +772,8 @@ extern "C" int repas_ccl_limits(int W, int device, int* out) {
   out[3] = kThreads;
   return (int)with_seg(W, [&](auto seg) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], ccl_band<GridScope, decltype(seg)::value>, kThreads, 0);
+        &out[2], ccl_band<GridScope, decltype(seg)::value, false>, kThreads,
+        0);
   });
 }
 
@@ -681,7 +785,7 @@ extern "C" int repas_ccl_max_clusters(int cluster, int band_rows, int W,
   if (err != cudaSuccess) return (int)err;
   const size_t smem = band_smem(band_rows, W, true);
   return (int)with_seg(W, [&](auto seg) {
-    auto kern = ccl_band<ClusterScope, decltype(seg)::value>;
+    auto kern = ccl_band<ClusterScope, decltype(seg)::value, false>;
     cudaError_t e = prepare(kern, smem, cluster);
     if (e != cudaSuccess) return e;
     ClusterConfig cc(cluster, 1, smem, nullptr);

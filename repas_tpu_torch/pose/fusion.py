@@ -7,7 +7,9 @@ Batched over frames:
   * per-tag IPPE-square on the corners' known TL,TR,BR,BL order (the
     detector canonicalizes it), or with ``try_all_orders`` the 8-order
     search for corners of unknown order
-  * weight_i = max(area,1e-3) / max(reproj_err,1e-3)
+  * weight_i = max(area,1e-3) / max(reproj_err,1e-3), the error each
+    pose's mean corner distance in float64 from the pose as output
+    (rotation through its unit quaternion)
   * per-id 180-deg Z-flip fix (tag 9 by default)
   * weighted hemisphere-aligned quaternion average
   * anchor = configured id if present and valid, else argmax weight
@@ -24,10 +26,13 @@ import torch
 
 from repas_tpu_torch.core.consts import const
 from repas_tpu_torch.core.jit import jit
-from repas_tpu_torch.core.transforms import average_rotations_quat, flip_z_180
+from repas_tpu_torch.core.transforms import (R_to_quat, average_rotations_quat,
+                                             flip_z_180, quat_to_R)
+from repas_tpu_torch.kernels.project import project_points
 from repas_tpu_torch.pose.depth_correct import depth_corrected_translation
-from repas_tpu_torch.pose.pnp import (solve_pnp_best_order,
-                                      solve_pnp_ippe_square)
+from repas_tpu_torch.pose.pnp import (SQUARE_ORDERS, solve_pnp_best_order,
+                                      solve_pnp_ippe_square,
+                                      square_object_points)
 
 
 class FusedPose(NamedTuple):
@@ -46,6 +51,28 @@ class FusedPose(NamedTuple):
     order_idx: torch.Tensor      # (B,N) int32 winning corner order
 
 
+def pose_residual_f64(R: torch.Tensor, t: torch.Tensor, img: torch.Tensor,
+                      K: torch.Tensor, tag_size_m: float, dist=None
+                      ) -> torch.Tensor:
+    """Mean distance in pixels, in float64, between the tag corners of
+    poses (R (...,3,3), t (...,3)) projected and `img` (...,4,2): the
+    rotation taken through its unit quaternion, the other values as they
+    are. The solver's own float32 error rounds 600 px coordinates, about
+    5e-5 px, which is a few percent of the thousandths of a pixel that a
+    clean tag's pose leaves; the weights divide by this error, and the
+    weighted mean of rotations far apart (tags turned differently in one
+    frame) moves by as much as those weights. The solvers keep their
+    float32 error: it picks among IPPE branches and corner orders whose
+    errors tie to within rounding, and in float64 that pick departs from
+    the reference's (a near-frontal tag's branch flips)."""
+    f64 = torch.float64
+    Rq = quat_to_R(R_to_quat(R.to(f64)))
+    obj = square_object_points(tag_size_m, img.device).to(f64)
+    proj = project_points(obj, Rq, t.to(f64), K.to(f64),
+                          None if dist is None else dist.to(f64))
+    return torch.linalg.vector_norm(proj - img.to(f64), dim=-1).mean(-1)
+
+
 def fuse_tag_poses(corners: torch.Tensor, ids: torch.Tensor,
                    areas: torch.Tensor, valid: torch.Tensor,
                    depth_m: torch.Tensor, K: torch.Tensor, tag_size_m: float,
@@ -62,11 +89,21 @@ def fuse_tag_poses(corners: torch.Tensor, ids: torch.Tensor,
     if try_all_orders:
         Rs, ts, errs, orders = solve_pnp_best_order(corners, K, tag_size_m,
                                                     dist=dist)
+        # the corners as the winning order paired them
+        inv = const(tuple(tuple(int(i) for i in o)
+                          for o in SQUARE_ORDERS.argsort(-1)), torch.int64,
+                    corners.device)
+        paired = torch.take_along_dim(corners[..., inv, :],
+                                      orders[..., None, None, None], dim=-3
+                                      )[..., 0, :, :]
         orders = orders.to(torch.int32)
     else:
         Rs, ts, errs = solve_pnp_ippe_square(corners, K, tag_size_m,
                                              dist=dist)
         orders = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
+        paired = corners
+    errs = pose_residual_f64(Rs, ts, paired, K, tag_size_m, dist).to(
+        errs.dtype)
 
     flip_ids = const(tuple(flip_z_ids), ids.dtype, ids.device)
     needs_flip = torch.any(ids[..., None] == flip_ids, dim=-1)

@@ -84,7 +84,8 @@ def _stage_prefix(img: torch.Tensor, config: DetectorConfig, upto: str):
     dark = (~binary) & (~ambiguous)
     if upto == "thresh":
         return torch.sum(dark)
-    labels = connected_components(dark, iters=config.ccl_iters)
+    labels = connected_components(dark, iters=config.ccl_iters,
+                                  converge=True)
     if upto == "ccl":
         return torch.sum(labels)
     roots, areas, valid_c, bbox = top_k_components(

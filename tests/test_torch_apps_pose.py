@@ -33,6 +33,12 @@ from test_torch_stream_scenes import (TAG, TAGS, Z0, angle_deg,  # noqa: E402
                                       render_view, run_both, write_frame,
                                       write_intrinsics)
 
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
+
 STAMP = "20250101_000000"
 MOVE = np.array([0.01, 0.0, 0.0])        # the second capture's camera shift
 

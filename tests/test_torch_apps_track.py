@@ -22,6 +22,12 @@ from test_torch_stream_scenes import (angle_deg,  # noqa: E402
                                       check_pipeline_records, stream_args,
                                       track_both)
 
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
+
 
 @pytest.fixture(scope="module")
 def args(tmp_path_factory):

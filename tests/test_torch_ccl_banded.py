@@ -11,8 +11,12 @@ to the nearest break where the run reaches the band's edge; the
 neighbouring bands' edge rows, then a horizontal 3-min. It is held bit-exact
 to ``connected_components_plain`` and to the JAX package's
 ``_connected_components_xla``, at band heights that do and do not divide
-H and with empty trailing bands, converged or not. Tolerance: exact
-(integer labels from min, compares and selects).
+H and with empty trailing bands, converged or not. With ``converge`` it
+also stops as the kernel does: after a round whose vertical minima
+repeat the round before's, at least ``iters`` and two rounds in; held to
+the plain converged labels, and to stopping one or two rounds after the
+fixed-round labels first converge. Tolerance: exact (integer labels from
+min, compares and selects).
 
 The plan is checked at the H100's limits (232,448 B of shared memory a
 block may opt into, 132 SMs).
@@ -92,11 +96,13 @@ def _band_cols(lab, mask, band_rows, bands):
     return lab
 
 
-def _banded_ccl(mask, iters, band_rows, bands=None):
+def _banded_ccl(mask, iters, band_rows, bands=None, converge=False):
     """The band kernel's arithmetic on (B,H,W) masks; `bands` may exceed
     ceil(H / band_rows), leaving empty bands at the bottom. The stencil
     runs as the kernel runs it: the vertical 3-min per band with the
-    neighbouring bands' edge rows, then the horizontal 3-min."""
+    neighbouring bands' edge rows, then the horizontal 3-min. With
+    `converge`, returns (labels, rounds run), stopping as the kernel's
+    launch does."""
     B, h, w = mask.shape
     bands = bands or -(-h // band_rows)
     sent = h * w
@@ -104,7 +110,8 @@ def _banded_ccl(mask, iters, band_rows, bands=None):
     lab = torch.where(mask, idx, sent)
     spans = _spans(h, band_rows, bands)
     edge = torch.full((B, 1, w), sent, dtype=lab.dtype)
-    for _ in range(iters):
+    rounds, last = 0, None
+    while rounds < iters or converge:
         for reverse in (False, True):           # rows lie whole in a band
             lab = torch.where(mask, ccl._seg_min_scan(lab, ~mask, 2, reverse,
                                                       sent), sent)
@@ -125,6 +132,14 @@ def _banded_ccl(mask, iters, band_rows, bands=None):
         hmin = torch.minimum(torch.minimum(p[..., :-2], p[..., 1:-1]),
                              p[..., 2:])
         lab = torch.where(mask, hmin, sent)
+        rounds += 1
+        if converge:
+            # the vertical minima of the foreground repeat the last round's
+            fg = torch.where(mask, vmin, 0)
+            same = last is not None and torch.equal(fg, last)
+            last = fg
+            if same and rounds >= max(iters, 2):
+                return lab, rounds
     return lab
 
 
@@ -170,6 +185,26 @@ def test_band_model_keeps_unconverged_spiral(band_rows):
     got = _banded_ccl(torch.from_numpy(m), 1, band_rows)[0].numpy()
     np.testing.assert_array_equal(got, _xla(m, 1)[0])
     assert len(np.unique(got[m[0]])) > 1
+
+
+@pytest.mark.parametrize("mask,iters,band_rows", [
+    (_spiral(), 1, 4),
+    (_spiral(), 5, 7),
+    (_spiral(25), 30, 33),                  # converged before `iters`
+    (np.random.default_rng(3).random((2, 37, 70)) >= 0.4, 1, 8),
+    (np.zeros((1, 24, 48), bool), 1, 5),    # nothing to label
+])
+def test_band_model_stops_after_the_labels_converge(mask, iters, band_rows):
+    m = torch.from_numpy(mask)
+    got, rounds = _banded_ccl(m, iters, band_rows, converge=True)
+    conv = ccl.connected_components_plain(m, iters, converge=True)
+    assert torch.equal(got, conv)
+    first = 0
+    while not torch.equal(ccl.connected_components_plain(m, first)
+                          if first else ccl.initial_labels(m), conv):
+        first += 1
+    assert rounds == max(iters, 2) or first + 1 <= rounds <= first + 2, \
+        (rounds, first)
 
 
 # cudaOccupancyMaxActiveClusters of the band kernel's clusters on an H100

@@ -83,9 +83,11 @@ def test_connected_components_dispatches_by_size(monkeypatch):
     tiled = ccl_tiled.connected_components_tiled_plain
     plain = ccl.connected_components_plain
     monkeypatch.setattr(ccl_tiled, "connected_components_tiled_plain",
-                        lambda m, i: calls.append("tiled") or tiled(m, i))
+                        lambda m, i, c: calls.append("tiled")
+                        or tiled(m, i, c))
     monkeypatch.setattr(ccl, "connected_components_plain",
-                        lambda m, i: calls.append("plain") or plain(m, i))
+                        lambda m, i, c: calls.append("plain")
+                        or plain(m, i, c))
     big = torch.from_numpy(_mask(9, (1, 725, 725), 0.7))   # 525,625 px
     small = torch.from_numpy(_mask(9, (1, 512, 1024), 0.7))  # 524,288 px
     got = ccl.connected_components(big, 2)

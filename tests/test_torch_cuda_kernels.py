@@ -147,6 +147,115 @@ def test_band_ccl_refused_launch_raises(dev):
         ccl_cuda.run_plan(mask, 1, too_wide)
 
 
+def _turned_tag_masks(shape, seed):
+    """(B,H,W) dark masks of rendered tags turned in plane: 1-4 tags a
+    frame of 30-110 px (the 61-220 px tags of a 720p frame at the
+    detector's decimation 2), any turn, noise sigma 2, thresholded."""
+    from repas_tpu_torch.detect.render import render_tag_in_scene
+
+    B, h, w = shape
+    rng = np.random.default_rng(seed)
+    f, z = 500.0, 1.0
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    masks = []
+    for _ in range(B):
+        img = np.full((h, w), 180.0, np.float32)
+        for _ in range(int(rng.integers(1, 5))):
+            side = rng.uniform(30, 110)
+            a = rng.uniform(-np.pi, np.pi)
+            R = np.array([[np.cos(a), -np.sin(a), 0],
+                          [np.sin(a), np.cos(a), 0], [0, 0, 1.0]])
+            t = np.array([rng.uniform(-0.35, 0.35) * w / f,
+                          rng.uniform(-0.3, 0.3) * h / f, z])
+            g = render_tag_in_scene(int(rng.integers(0, 12)), R, t, K,
+                                    side * z / f, (h, w), supersample=1)
+            img = np.where(np.abs(g - 180.0) > 1e-3, g, img)
+        img = img + rng.normal(0, 2.0, img.shape)
+        masks.append(img < 105.0)
+    return torch.from_numpy(np.stack(masks))
+
+
+@pytest.mark.parametrize("iters", [1, 5])
+def test_ccl_kernel_converged_on_turned_tags(dev, iters):
+    """B1 at the frame step's shape on rendered turned tags, run to the
+    fixed point: the plain version's converged labels, and the device
+    counter's rounds (at least `iters`, more than 5 rounds' labels
+    needed somewhere), images and call."""
+    mask = _turned_tag_masks((16, 360, 640), 11).to(dev)
+    before = ccl_cuda.counts(dev)["b1"]
+    got = ccl_cuda.connected_components_cuda(mask, iters, converge=True)
+    after = ccl_cuda.counts(dev)["b1"]
+    ref = ccl.connected_components_plain(mask.cpu(), iters, converge=True)
+    assert torch.equal(got.cpu(), ref)
+    assert not torch.equal(ccl.connected_components_plain(mask.cpu(), 5),
+                           ref)
+    assert after["images"] - before["images"] == 16
+    assert after["calls"] - before["calls"] == 1
+    rounds = after["rounds"] - before["rounds"]
+    assert 16 * max(iters, 2) <= rounds < 16 * 64
+    print("B1 converged, mean rounds an image", rounds / 16)
+
+
+@pytest.mark.parametrize("shape,density,iters", [
+    ((16, 360, 640), 0.55, 5),       # the main path's shape, cluster mode
+    ((2, 720, 1280), 0.5, 1),        # full resolution: grid mode
+    ((12, 720, 1280), 0.5, 5),       # several grid groups
+    ((3, 37, 53), 0.4, 1),           # odd sizes, partial warps
+    ((1, 724, 724), 0.5, 5),         # a cluster over 8 (non-portable)
+    ((4, 64, 96), -1.0, 1),          # all foreground
+    ((4, 64, 96), 1.0, 5),           # all background
+])
+def test_ccl_kernels_converged_match_plain(dev, shape, density, iters):
+    """B1 and B4 run to the fixed point equal the plain version's
+    converged labels; fixed-round calls count `iters` rounds an image."""
+    rng = np.random.default_rng(8)
+    mask = torch.from_numpy(rng.random(shape) > density).to(dev)
+    ref = ccl.connected_components_plain(mask.cpu(), iters, converge=True)
+    b1 = ccl_cuda.connected_components_cuda(mask, iters, converge=True)
+    b4 = ccl_tiled.connected_components_tiled_cuda(mask, iters,
+                                                   converge=True)
+    assert torch.equal(b1.cpu(), ref) and torch.equal(b4.cpu(), ref)
+    before = ccl_cuda.counts(dev)
+    ccl_cuda.connected_components_cuda(mask, iters)
+    ccl_tiled.connected_components_tiled_cuda(mask, iters)
+    after = ccl_cuda.counts(dev)
+    for k in ("b1", "b4"):
+        d = {n: after[k][n] - before[k][n] for n in after[k]}
+        assert d == {"rounds": iters * shape[0], "images": shape[0],
+                     "calls": 1}, (k, d)
+
+
+def test_ccl_converged_spiral_and_graph_replays_count(dev):
+    """A one-pixel spiral needs many rounds; B1 captured in a CUDA graph
+    converges in every replay, and every replay adds to the counter."""
+    n = 161
+    m = np.zeros((2, n, n), bool)
+    lo, hi = 1, n - 2
+    while lo < hi:
+        m[:, lo, lo:hi + 1] = True
+        m[:, lo:hi + 1, hi] = True
+        m[:, hi, lo:hi + 1] = True
+        m[:, lo + 2:hi + 1, lo] = True
+        m[:, lo + 2, lo:lo + 3] = True    # on into the next turn
+        lo, hi = lo + 2, hi - 2
+    mask = torch.from_numpy(m).to(dev)
+    ref = ccl.connected_components_plain(mask.cpu(), 5, converge=True)
+    assert len(torch.unique(ref[0][torch.from_numpy(m[0])])) == 1
+    ccl_cuda.connected_components_cuda(mask, 5, converge=True)   # plan, build
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ccl_cuda.connected_components_cuda(mask, 5, converge=True)
+    before = ccl_cuda.counts(dev)["b1"]
+    for _ in range(3):
+        g.replay()
+    after = ccl_cuda.counts(dev)["b1"]
+    assert torch.equal(out.cpu(), ref)
+    assert after["calls"] - before["calls"] == 3
+    assert after["images"] - before["images"] == 6
+    assert after["rounds"] - before["rounds"] > 6 * 20
+
+
 def test_connected_components_dispatch_on_card(dev):
     """Over MAX_VMEM_PIXELS a CUDA mask launches B4, at or under it B1."""
     rng = np.random.default_rng(5)

@@ -26,6 +26,13 @@ which eager torch does not form: sample coordinates differ by an ulp, a
 tied gradient peak of the edge refiner can move by an offset step, and
 refined corners move by up to a few hundredths of a pixel, the decode
 grid's edge samples with them (ROADMAP section C).
+
+The reference runs with the port detector's two departures
+(``tests/jax_departures.py``: converged labels, member-only support
+points). The JAX package finds and decodes every tag of these frames
+too, so every frame is held to that reference under the limits above
+(measured: corners at most 0.040 px, bboxes 0.040 px, margin 0.044
+gray).
 """
 import numpy as np
 import pytest
@@ -39,6 +46,11 @@ from repas_tpu.detect import render as JR  # noqa: E402
 from repas_tpu_torch.detect import detector as TD  # noqa: E402
 from repas_tpu_torch.detect import render as TR  # noqa: E402
 from repas_tpu_torch.kernels import ccl as TC  # noqa: E402
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
 
 H, W = 360, 640
 F = 0.6 * W

@@ -17,6 +17,11 @@ sample's peak by a whole offset step. Measured here: corners 0.0006 px,
 margin 0.057 gray, R 0.040 deg, t 0.0045 mm; with tag 9 mounted
 upright instead, corners 0.019 px, margin 0.092 gray and R 0.105 deg on
 a 32 px tag (ROADMAP section C).
+
+The reference runs with the port detector's two departures
+(``tests/jax_departures.py``: converged labels, member-only support
+points). The JAX package finds and decodes every tag of these frames
+too, so every frame is held to that reference under the limits above.
 """
 import dataclasses
 
@@ -33,6 +38,11 @@ from repas_tpu_torch.core.config import from_reference  # noqa: E402
 from repas_tpu_torch.detect.render import (example_frame,  # noqa: E402
                                            render_tag_in_scene)
 from repas_tpu_torch.pipeline import process_frame, process_frames  # noqa
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
 
 H, W = 360, 640
 F = 0.6 * W

@@ -50,6 +50,12 @@ from repas_tpu_torch.detect.detector import Detections  # noqa: E402
 from repas_tpu_torch.detect.render import (render_tag,  # noqa: E402
                                            render_tag_in_scene)
 
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
+
 CFG = dict(max_components=16, max_detections=4, ccl_iters=8)
 
 

@@ -21,6 +21,12 @@ from repas_tpu_torch.core.config import DetectorConfig  # noqa: E402
 from repas_tpu_torch.detect import robust as TR  # noqa: E402
 from test_torch_robust import CFG, EXPECTED, SCENES, _assert_same  # noqa: E402
 
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
+
 
 @pytest.fixture(scope="module")
 def staged_refs():

@@ -80,6 +80,17 @@ def jps():
     return _jax_tool("profile_stages")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_tool_departures(jps):
+    """The JAX tool's detector stages with the port detector's two
+    departures (``tests/jax_departures.py``): profile_stages mirrors the
+    port's detector, converged labels and member-only support points."""
+    import jax_departures
+
+    with jax_departures.applied(jps):
+        yield
+
+
 @pytest.fixture(scope="module")
 def jmp():
     return _jax_tool("micro_perf")

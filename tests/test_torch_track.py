@@ -7,6 +7,11 @@ Tolerances: mode, ok and tag id exact at every step; R <= 0.05 deg
 error <= 2e-3 px (measured 0.012 deg, 0.0042 mm, 1e-4 px: XLA fuses the
 LM's multiply-adds into FMAs, eager torch does not); the JAX test's
 truth gates (3.5 mm while tracking, 3 mm on re-registration).
+
+The reference runs with the port detector's two departures
+(``tests/jax_departures.py``: converged labels, member-only support
+points). The JAX package finds and decodes every tag of these frames
+too, so every frame is held to that reference under the limits above.
 """
 import dataclasses
 
@@ -25,6 +30,11 @@ from repas_tpu_torch.core.transforms import rodrigues  # noqa: E402
 from repas_tpu_torch.detect.render import render_tag_in_scene  # noqa: E402
 from repas_tpu_torch.pose.track import (TagTracker, TrackerConfig,  # noqa
                                         _roi_detector_config)
+from jax_departures import jax_detector_departures  # noqa: E402,F401
+from torch_threads import torch_one_thread  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread",
+                                     "jax_detector_departures")
 
 K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]], np.float32)
 SHAPE = (480, 640)
